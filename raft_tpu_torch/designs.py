@@ -1,0 +1,192 @@
+"""Built-in example designs, constructed programmatically.
+
+These are self-contained design dictionaries in the same schema the YAML
+loader produces (reference schema documented by
+examples/VolturnUS-S_example.yaml; see SURVEY.md §2.1 row 11), so the
+framework, its tests, the benchmark, and the entry points work even
+without any external design files.
+
+`deep_spar()` is a generic ballasted deep-draft spar (inspired by the public
+OC3-Hywind configuration but with round-number parameters of our own
+choosing); `demo_semi()` is a small three-column semisubmersible exercising
+heading replication, rectangular pontoons, and multi-section ballast;
+`flagship()` is the benchmark's main-path problem built on `demo_semi()`.
+
+The port's own copy of ``raft_tpu/designs.py`` (the aero designs come with
+the rotor slice).
+"""
+
+import numpy as np
+
+
+def _case_table(rows):
+    keys = [
+        "wind_speed", "wind_heading", "turbulence", "turbine_status",
+        "yaw_misalign", "wave_spectrum", "wave_period", "wave_height",
+        "wave_heading",
+    ]
+    return {"keys": keys, "data": [list(r) for r in rows]}
+
+
+def deep_spar(n_cases=1, nw_settings=(0.02, 0.8)):
+    """A moored deep-draft spar floating wind platform (no aero)."""
+    min_freq, max_freq = nw_settings
+    cases = _case_table(
+        [
+            [0.0, 0.0, "IB_NTM", "operating", 0.0, "JONSWAP", 9.0 + 0.5 * i,
+             5.0 + 0.5 * i, 0.0]
+            for i in range(n_cases)
+        ]
+    )
+    return {
+        "settings": {"min_freq": min_freq, "max_freq": max_freq,
+                     "XiStart": 0.1, "nIter": 15},
+        "site": {"water_depth": 300.0, "rho_water": 1025.0, "rho_air": 1.225,
+                 "mu_air": 1.81e-5, "shearExp": 0.12},
+        "cases": cases,
+        "turbine": {
+            "mRNA": 3.5e5, "IxRNA": 4.0e7, "IrRNA": 2.5e7,
+            "xCG_RNA": -0.2, "hHub": 90.0, "Fthrust": 8.0e5,
+            "aeroServoMod": 0,
+            "tower": {
+                "name": "tower", "type": 1,
+                "rA": [0.0, 0.0, 10.0], "rB": [0.0, 0.0, 87.0],
+                "shape": "circ", "gamma": 0.0,
+                "stations": [10.0, 87.0],
+                "d": [6.5, 3.9],
+                "t": [0.030, 0.020],
+                "Cd": 0.0, "Ca": 0.0, "CdEnd": 0.0, "CaEnd": 0.0,
+                "rho_shell": 8500.0,
+            },
+        },
+        "platform": {
+            "potModMaster": 0,
+            "dlsMax": 5.0,
+            "members": [
+                {
+                    "name": "spar", "type": 2,
+                    "rA": [0.0, 0.0, -120.0], "rB": [0.0, 0.0, 10.0],
+                    "shape": "circ", "gamma": 0.0, "potMod": False,
+                    "stations": [0.0, 108.0, 116.0, 130.0],
+                    "d": [9.4, 9.4, 6.5, 6.5],
+                    "t": [0.027, 0.027, 0.027, 0.027],
+                    "l_fill": [52.0, 0.0, 0.0],
+                    "rho_fill": [1800.0, 0.0, 0.0],
+                    "Cd": 0.6, "Ca": 0.97, "CdEnd": 0.6, "CaEnd": 0.0,
+                    "rho_shell": 7850.0,
+                },
+            ],
+        },
+        "mooring": {
+            "water_depth": 300.0,
+            "points": (
+                [
+                    {"name": f"anchor{i+1}", "type": "fixed",
+                     "location": [850.0 * np.cos(th), 850.0 * np.sin(th), -300.0],
+                     "anchor_type": "drag_embedment"}
+                    for i, th in enumerate(np.deg2rad([60.0, 180.0, 300.0]))
+                ]
+                + [
+                    {"name": f"fair{i+1}", "type": "vessel",
+                     "location": [5.2 * np.cos(th), 5.2 * np.sin(th), -70.0]}
+                    for i, th in enumerate(np.deg2rad([60.0, 180.0, 300.0]))
+                ]
+            ),
+            "lines": [
+                {"name": f"line{i+1}", "endA": f"anchor{i+1}",
+                 "endB": f"fair{i+1}", "type": "chain", "length": 900.0}
+                for i in range(3)
+            ],
+            "line_types": [
+                {"name": "chain", "diameter": 0.09, "mass_density": 77.7,
+                 "stiffness": 3.84e8, "breaking_load": 1e8, "cost": 100.0,
+                 "transverse_added_mass": 1.0, "tangential_added_mass": 0.0,
+                 "transverse_drag": 1.6, "tangential_drag": 0.1}
+            ],
+            "anchor_types": [
+                {"name": "drag_embedment", "mass": 1e4, "cost": 1e4}
+            ],
+        },
+    }
+
+
+def demo_semi(n_cases=2, nw_settings=(0.02, 0.8)):
+    """A three-column semisubmersible with a center column and rectangular
+    pontoons, exercising heading replication and mixed member shapes."""
+    d = deep_spar(n_cases=n_cases, nw_settings=nw_settings)
+    r_col = 30.0
+    d["platform"]["members"] = [
+        {
+            "name": "center", "type": 2,
+            "rA": [0.0, 0.0, -20.0], "rB": [0.0, 0.0, 15.0],
+            "shape": "circ", "gamma": 0.0, "potMod": False,
+            "stations": [0.0, 35.0],
+            "d": [10.0, 10.0], "t": [0.05, 0.05],
+            "l_fill": 2.0, "rho_fill": 2500.0,
+            "Cd": 0.6, "Ca": 0.97, "CdEnd": 0.6, "CaEnd": 0.6,
+            "rho_shell": 7850.0,
+        },
+        {
+            "name": "outer", "type": 2,
+            "rA": [r_col, 0.0, -20.0], "rB": [r_col, 0.0, 15.0],
+            "shape": "circ", "gamma": 0.0, "potMod": False,
+            "heading": [60.0, 180.0, 300.0],
+            "stations": [0.0, 35.0],
+            "d": [12.5, 12.5], "t": [0.045, 0.045],
+            "l_fill": 7.0, "rho_fill": 1025.0,
+            "Cd": 0.6, "Ca": 0.97, "CdEnd": 0.6, "CaEnd": 0.6,
+            "rho_shell": 7850.0,
+        },
+        {
+            "name": "pontoon", "type": 2,
+            "rA": [5.0, 0.0, -16.5], "rB": [r_col - 6.0, 0.0, -16.5],
+            "shape": "rect", "gamma": 0.0, "potMod": False,
+            "heading": [60.0, 180.0, 300.0],
+            "stations": [0.0, 1.0],
+            "d": [[12.4, 7.0], [12.4, 7.0]],
+            "t": [0.04, 0.04],
+            "l_fill": 19.0, "rho_fill": 1025.0,
+            "Cd": [2.0, 1.0], "Ca": [1.0, 1.0], "CdEnd": 0.6, "CaEnd": 0.6,
+            "rho_shell": 7850.0,
+        },
+    ]
+    d["turbine"]["hHub"] = 110.0
+    d["turbine"]["tower"]["rA"] = [0.0, 0.0, 15.0]
+    d["turbine"]["tower"]["rB"] = [0.0, 0.0, 105.0]
+    d["turbine"]["tower"]["stations"] = [15.0, 105.0]
+    d["mooring"]["water_depth"] = 200.0
+    d["site"]["water_depth"] = 200.0
+    for p in d["mooring"]["points"]:
+        if p["type"] == "fixed":
+            p["location"][2] = -200.0
+        else:
+            p["location"][0] *= 8.0
+            p["location"][1] *= 8.0
+            p["location"][2] = -14.0
+    return d
+
+
+def flagship(min_freq, max_freq, n_cases):
+    """The main-path design: :func:`demo_semi` with aero off, the given
+    frequency grid, and ``n_cases`` JONSWAP cases of rising height and
+    period (the same problem ``__graft_entry__._flagship_design`` builds
+    when no external VolturnUS-S design is mounted).  At
+    ``flagship(0.00625, 0.8, 12)`` it is 128 frequencies x 12 cases."""
+    design = demo_semi()
+    design["settings"] = {
+        "min_freq": min_freq, "max_freq": max_freq, "XiStart": 0.1,
+        "nIter": 15,
+    }
+    design["turbine"]["aeroServoMod"] = 0
+    keys = design["cases"]["keys"]
+    row = dict(zip(keys, design["cases"]["data"][0]))
+    rows = []
+    for i in range(n_cases):
+        r = dict(row)
+        r["wind_speed"] = 0.0
+        r["wave_spectrum"] = "JONSWAP"
+        r["wave_height"] = 4.0 + 0.5 * i
+        r["wave_period"] = 8.0 + 0.25 * i
+        rows.append([r[k] for k in keys])
+    design["cases"]["data"] = rows
+    return design

@@ -1,0 +1,266 @@
+"""Batched frequency-domain response solve (the port's
+``raft_tpu/dynamics.py``).
+
+- The complex 6x6 impedance solves run as real 12x12 block systems
+  [[Zr, -Zi], [Zi, Zr]] through Gauss–Jordan elimination: on the card
+  every one of them, the recovery ladder's included, is a launch of the
+  CUDA kernel (raft_tpu_torch/kernels/gj_solve.py).
+- The drag-linearization fixed point runs for all cases at once: the
+  JAX ``while_loop`` under ``vmap`` becomes a Python loop over trips of
+  one batched body with a per-case ``done`` mask.  A case that is done
+  (converged, out of iterations, or quarantined) keeps its state through
+  ``torch.where``, exactly as the JAX select keeps a finished lane.
+- A non-finite iterate freezes its case at the last finite state and
+  sets ``nonfinite`` (the NaN quarantine); the final re-solve goes
+  through the escalating recovery ladder, which fills the
+  :class:`raft_tpu_torch.health.SolveReport`.
+"""
+
+import torch
+
+from raft_tpu_torch.health import (
+    SolveReport,
+    TIER_BASELINE,
+    TIER_REFINE,
+    TIER_TIKHONOV,
+)
+from raft_tpu_torch.hydro import linearized_drag
+from raft_tpu_torch.kernels.gj_solve import gj_solve
+
+
+def _eliminate(M):
+    """gj_solve over any leading batch shape of ``M [..., n, m]``."""
+    shape = M.shape
+    out, piv = gj_solve(M.reshape((-1,) + shape[-2:]).contiguous())
+    return out.reshape(shape), piv.reshape(shape[:-1])
+
+
+def gauss_solve(A, b):
+    """Batched dense solve by Gauss–Jordan elimination with partial
+    pivoting.
+
+    A : [..., n, n];  b : [..., n, nrhs] -> x : [..., n, nrhs]
+    """
+    n = A.shape[-1]
+    M, _ = _eliminate(torch.cat([A, b], dim=-1))
+    return M[..., n:]
+
+
+def gj_cond_estimate(A):
+    """Per-batch condition estimate of A: the max/min |pivot| ratio of a
+    Gauss–Jordan elimination of the ROW-EQUILIBRATED matrix (scale
+    invariant; a (near-)singular A drives it toward +inf).  Non-finite
+    inputs report +inf."""
+    d = torch.amax(torch.abs(A), dim=-1, keepdim=True)
+    d = torch.where(d > 0, d, torch.ones_like(d))
+    _, piv = _eliminate(torch.cat([A / d, torch.zeros_like(A[..., :1])],
+                                  dim=-1))
+    # NaN propagates through both reductions, as with jnp.minimum/maximum
+    pmin = torch.amin(piv, dim=-1)
+    pmax = torch.amax(piv, dim=-1)
+    tiny = torch.tensor(torch.finfo(A.dtype).tiny, dtype=A.dtype,
+                        device=A.device)
+    cond = pmax / torch.maximum(pmin, tiny)
+    return torch.where(torch.isfinite(cond), cond,
+                       torch.full_like(cond, torch.inf))
+
+
+def _block_system(Zr, Zi, Fr, Fi):
+    """(Zr + i Zi) x = Fr + i Fi as the equivalent real block system."""
+    top = torch.cat([Zr, -Zi], dim=-1)
+    bot = torch.cat([Zi, Zr], dim=-1)
+    A = torch.cat([top, bot], dim=-2)                   # [..., 12, 12]
+    b = torch.cat([Fr, Fi], dim=-1)[..., None]          # [..., 12, 1]
+    return A, b
+
+
+def solve_complex_6x6(Zr, Zi, Fr, Fi, refine=1):
+    """Solve (Zr + i Zi) x = (Fr + i Fi) batched over leading axes via the
+    real block system, with ``refine`` iterative-refinement steps.
+
+    Zr, Zi : [..., 6, 6];  Fr, Fi : [..., 6] -> (xr, xi) : [..., 6] each.
+    """
+    A, b = _block_system(Zr, Zi, Fr, Fi)
+    x = gauss_solve(A, b)
+    for _ in range(refine):
+        x = x + gauss_solve(A, b - A @ x)
+    x = x[..., 0]
+    return x[..., :6], x[..., 6:]
+
+
+def solve_complex_6x6_ladder(Zr, Zi, Fr, Fi, refine=1, resid_tol=None,
+                             cond_max=None, tik_rel=1e-3, extra_refine=2):
+    """The batched complex 6x6 solve with the escalating conditioned-solve
+    recovery ladder, per batch element:
+
+     tier 0 (baseline)  : block solve + ``refine`` refinement steps — the
+                          same arithmetic as :func:`solve_complex_6x6`;
+     tier 1 (refine)    : ``extra_refine`` more refinement steps where the
+                          relative residual exceeds ``resid_tol`` or the
+                          baseline went non-finite;
+     tier 2 (tikhonov)  : flagged Tikhonov-regularized normal equations
+                          (A^T A + lam^2 I) x = A^T b, lam = tik_rel max|A|,
+                          where the condition estimate exceeds ``cond_max``
+                          or the refined solve is still bad.
+
+    Every tier is computed and the tier is *selected* per element, so a
+    healthy element keeps the baseline arithmetic.  Defaults scale with the
+    working dtype: resid_tol = 1e3 eps, cond_max = 0.02/eps.
+
+    Returns (xr, xi, residual, cond, tier): xr, xi [..., 6]; the relative
+    residual, the condition estimate and the tier (TIER_*) [...].
+    """
+    A, b = _block_system(Zr, Zi, Fr, Fi)
+    finfo = torch.finfo(A.dtype)
+    if resid_tol is None:
+        resid_tol = 1e3 * finfo.eps
+    if cond_max is None:
+        cond_max = 0.02 / finfo.eps
+    tiny = finfo.tiny
+    bnorm = torch.amax(torch.abs(b), dim=(-2, -1))
+
+    def rel_resid(x):
+        r = torch.amax(torch.abs(b - A @ x), dim=(-2, -1)) / (bnorm + tiny)
+        return torch.where(torch.isfinite(r), r, torch.full_like(r, torch.inf))
+
+    def finite(x):
+        return torch.isfinite(x).all(dim=-1).all(dim=-1)
+
+    # tier 0: the exact baseline path of solve_complex_6x6
+    x0 = gauss_solve(A, b)
+    for _ in range(refine):
+        x0 = x0 + gauss_solve(A, b - A @ x0)
+    r0 = rel_resid(x0)
+    need1 = (r0 > resid_tol) | ~finite(x0)
+
+    # tier 1: extra refinement (always computed, selected where needed)
+    x1 = x0
+    for _ in range(extra_refine):
+        x1 = x1 + gauss_solve(A, b - A @ x1)
+    xa = torch.where(need1[..., None, None], x1, x0)
+    ra = rel_resid(xa)
+
+    # tier 2: flagged Tikhonov regularization on the normal equations
+    cond = gj_cond_estimate(A)
+    need2 = (ra > resid_tol) | ~finite(xa) | (cond > cond_max)
+    anorm = torch.amax(torch.abs(A), dim=(-2, -1))
+    lam2 = (tik_rel * anorm) ** 2 + tiny
+    At = A.transpose(-1, -2)
+    n = A.shape[-1]
+    G = At @ A + lam2[..., None, None] * torch.eye(n, dtype=A.dtype,
+                                                   device=A.device)
+    x2 = gauss_solve(G, At @ b)
+    x = torch.where(need2[..., None, None], x2, xa)
+
+    tier = torch.where(
+        need2, torch.full_like(need2, TIER_TIKHONOV, dtype=torch.int64),
+        torch.where(need1,
+                    torch.full_like(need1, TIER_REFINE, dtype=torch.int64),
+                    torch.full_like(need1, TIER_BASELINE, dtype=torch.int64)))
+    residual = rel_resid(x)
+    x = x[..., 0]
+    return x[..., :6], x[..., 6:], residual, cond, tier
+
+
+def assemble_impedance(w, M, B, C):
+    """Z(w) = -w^2 M + i w B + C as (real, imag) parts.
+
+    w : [nw]; M, B : [..., nw, 6, 6]; C broadcastable to them.
+    """
+    w2 = (w * w)[:, None, None]
+    Zr = -w2 * M + C
+    Zi = w[:, None, None] * B
+    return Zr, Zi
+
+
+def solve_dynamics(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
+                   F_lin_i, XiStart, nIter=15, tol=0.01, refine=1,
+                   relax=0.8):
+    """Fixed-point dynamics solve for a batch of cases.
+
+    nodes : HydroNodes (working device and dtype)
+    u     : [nc, N, 3, nw] complex wave velocity at the nodes
+    M_lin, B_lin : [nc, nw, 6, 6] frequency-dependent mass/damping
+    C_lin : [nc, 6, 6] total stiffness
+    F_lin_r/i : [nc, nw, 6] linear excitation force (real/imag parts)
+    XiStart : initial amplitude guess
+    relax : weight of the NEW iterate in the under-relaxed update
+        (reference: Xi <- 0.2*old + 0.8*new)
+
+    Returns (Xi_r, Xi_i, report): [nc, 6, nw] response amplitude parts and
+    a SolveReport with [nc] fields.  The fixed point takes
+    ``report.iters.max()`` trips of the batched body.
+    """
+    nc, nw = M_lin.shape[0], w.shape[0]
+    cdtype = u.dtype
+    relax = float(relax)
+    # round so the default relax=0.8 reproduces the reference's literal
+    # 0.2 weight exactly (1.0 - 0.8 = 0.19999999999999996 in binary)
+    w_old = round(1.0 - relax, 12)
+    F_lin = torch.complex(F_lin_r, F_lin_i).to(cdtype)
+    C = C_lin[:, None]
+
+    def assemble(XiL):
+        B_drag, F_drag = linearized_drag(nodes, XiL, u, w, dw, rho)
+        Zr, Zi = assemble_impedance(w, M_lin, B_lin + B_drag[:, None], C)
+        return Zr, Zi, F_drag + F_lin
+
+    def step(XiL):
+        Zr, Zi, F = assemble(XiL)
+        xr, xi = solve_complex_6x6(Zr, Zi, F.real, F.imag, refine=0)
+        return torch.complex(xr, xi).transpose(-1, -2)          # [nc, 6, nw]
+
+    dev = u.device
+    i = torch.zeros(nc, dtype=torch.int64, device=dev)
+    XiLast = torch.full((nc, 6, nw), XiStart, dtype=cdtype, device=dev)
+    XiPoint = XiLast
+    Xi = torch.zeros((nc, 6, nw), dtype=cdtype, device=dev)
+    done = torch.zeros(nc, dtype=torch.bool, device=dev)
+    froze = torch.zeros(nc, dtype=torch.bool, device=dev)
+
+    def keep(new, old, active):
+        return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)),
+                           new, old)
+
+    while True:
+        active = (i < nIter + 1) & ~done
+        if not bool(active.any()):
+            break
+        # no refinement inside the loop: the fixed point only needs the
+        # solution to well within its 1% convergence tolerance
+        Xn = step(XiLast)
+        finite = torch.isfinite(Xn).all(dim=-1).all(dim=-1)
+        tolCheck = torch.abs(Xn - XiLast) / (torch.abs(Xn) + tol)
+        conv = (tolCheck < tol).all(dim=-1).all(dim=-1)  # NaN compares False
+        stop = conv | ~finite
+        XiNext = torch.where(stop[:, None, None], XiLast,
+                             w_old * XiLast + relax * Xn)
+        # XiPoint records the linearization point of the last solve, so the
+        # refined re-solve below reproduces exactly that solve
+        i = keep(i + 1, i, active)
+        XiPoint = keep(XiLast, XiPoint, active)
+        XiLast = keep(XiNext, XiLast, active)
+        Xi = keep(torch.where(finite[:, None, None], Xn, Xi), Xi, active)
+        done = keep(stop, done, active)
+        froze = keep(froze | ~finite, froze, active)
+
+    converged = done & ~froze
+    # one re-solve at the final linearization point through the recovery
+    # ladder gives the returned amplitudes and the health record
+    Zr, Zi, F = assemble(XiPoint)
+    xr_c, xi_c, resid, cond_est, tier = solve_complex_6x6_ladder(
+        Zr, Zi, F.real, F.imag, refine=refine)
+    Xi_cand = torch.complex(xr_c, xi_c).transpose(-1, -2)       # [nc, 6, nw]
+    cand_ok = torch.isfinite(Xi_cand).all(dim=-1).all(dim=-1)
+    # if even the ladder's last tier is non-finite, fall back to the loop's
+    # last finite iterate (zeros if none existed)
+    Xi_out = torch.where(cand_ok[:, None, None], Xi_cand, Xi)
+    report = SolveReport(
+        converged=converged,
+        iters=i,
+        nonfinite=froze | ~cand_ok,
+        recovery_tier=torch.amax(tier, dim=-1),
+        residual=torch.amax(resid, dim=-1),
+        cond=torch.amax(cond_est, dim=-1),
+    )
+    return Xi_out.real, Xi_out.imag, report

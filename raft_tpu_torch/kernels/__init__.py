@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels of the port, each with its plain PyTorch
+version beside it (see ``gj_solve``)."""

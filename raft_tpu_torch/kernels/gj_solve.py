@@ -1,0 +1,153 @@
+"""Batched Gauss–Jordan elimination: the CUDA kernel of the RAO hot loop
+and its plain PyTorch version.
+
+:func:`gj_solve` runs n steps of partial-pivot Gauss–Jordan elimination
+on every augmented system of ``M [B, n, m]`` and returns the eliminated
+``M`` (its ``[..., n:]`` columns are the solution) and ``|pivot|`` of
+every step, ``[B, n]``.  It replaces the TPU kernel
+``raft_tpu/pallas_kernels.py:128-179`` (``gauss_solve_pallas``).
+
+- A tensor on the card goes to the kernel in ``csrc/gj_solve.cu``, built
+  with ``nvcc`` for ``sm_90a`` at first use into ``build/raft_tpu_torch/``
+  and loaded with ``ctypes``.  A failed build or launch raises; there is
+  no fallback.
+- A tensor on the CPU goes to :func:`gj_solve_reference`, the plain
+  version of the same steps (the mirror of ``raft_tpu.dynamics._gj_step``).
+
+``launches`` counts the kernel's launches in this process.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "gj_solve.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "raft_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+MAX_N = 16
+MAX_M = 32
+
+launches = 0
+_lib = None
+
+
+def nvcc():
+    """Path of the CUDA compiler: ``nvcc`` on PATH, else the toolkit's
+    default location."""
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def build(verbose=False):
+    """Compile ``csrc/gj_solve.cu`` (once per source content) and load it.
+    Returns the ``ctypes`` library; raises ``RuntimeError`` when the build
+    fails.  ``verbose`` adds ``-Xptxas -v`` and prints the compiler's
+    report of registers and spills."""
+    global _lib
+    if _lib is not None and not verbose:
+        return _lib
+    with open(SOURCE, "rb") as fh:
+        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
+    lib_path = os.path.join(BUILD_DIR,
+                            f"libgj_solve_{digest.hexdigest()[:12]}.so")
+    if verbose or not os.path.exists(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+               "-o", tmp, SOURCE]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=600)
+        except OSError as e:
+            raise RuntimeError(f"cannot run {cmd[0]}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
+                f"{proc.stderr}")
+        if verbose:
+            print(proc.stderr, end="")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(lib_path)
+    for name in ("gj_solve_f64", "gj_solve_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _check(M):
+    if M.dim() != 3:
+        raise ValueError(f"gj_solve expects M [B, n, m], got {tuple(M.shape)}")
+    if M.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"gj_solve takes float32 or float64, got {M.dtype}")
+    _, n, m = M.shape
+    if not (1 <= n <= MAX_N and n <= m <= MAX_M):
+        raise ValueError(
+            f"gj_solve takes 1 <= n <= {MAX_N} and n <= m <= {MAX_M}, got "
+            f"n={n}, m={m}")
+
+
+def gj_solve(M):
+    """Eliminate every system of ``M [B, n, m]``; returns
+    ``(M_out [B, n, m], |pivot| [B, n])``.  CPU tensors take the plain
+    version, CUDA tensors the kernel."""
+    global launches
+    _check(M)
+    if M.device.type == "cpu":
+        return gj_solve_reference(M)
+    if M.device.type != "cuda":
+        raise ValueError(f"gj_solve runs on cuda or cpu, not {M.device}")
+    if not M.is_contiguous():
+        raise ValueError("gj_solve needs a contiguous M")
+    lib = build()
+    B, n, m = M.shape
+    out = torch.empty_like(M)
+    piv = torch.empty((B, n), dtype=M.dtype, device=M.device)
+    fn = lib.gj_solve_f64 if M.dtype == torch.float64 else lib.gj_solve_f32
+    stream = torch.cuda.current_stream(M.device).cuda_stream
+    with torch.cuda.device(M.device):
+        rc = fn(M.data_ptr(), out.data_ptr(), piv.data_ptr(), B, n, m,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"gj_solve kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out, piv
+
+
+def _gj_step(M, i, idx):
+    """One Gauss–Jordan step on ``M [B, n, m]``; returns the updated
+    matrix and ``|pivot|`` [B]."""
+    col = torch.abs(M[..., i])
+    col = torch.where(idx < i, torch.full_like(col, -torch.inf), col)
+    p = torch.argmax(col, dim=-1)                   # NaN counts as largest
+    rp = torch.take_along_dim(M, p[:, None, None], dim=-2)[:, 0, :]
+    ri = M[:, i, :]
+    is_i = (idx == i)[:, None]
+    is_p = (idx == p[:, None])[..., None]
+    M = torch.where(is_i, rp[:, None, :],
+                    torch.where(is_p, ri[:, None, :], M))
+    piv = rp[:, i:i + 1]
+    row = rp / piv
+    fac = M[:, :, i:i + 1]
+    M = torch.where(is_i, row[:, None, :], M - fac * row[:, None, :])
+    return M, torch.abs(piv[:, 0])
+
+
+def gj_solve_reference(M):
+    """The plain PyTorch version of :func:`gj_solve` (any device)."""
+    _check(M)
+    n = M.shape[1]
+    idx = torch.arange(n, device=M.device)
+    pivs = []
+    for i in range(n):
+        M, pa = _gj_step(M, i, idx)
+        pivs.append(pa)
+    return M, torch.stack(pivs, dim=-1)

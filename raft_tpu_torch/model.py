@@ -1,0 +1,622 @@
+"""Model — the user-facing facade of the port (``raft_tpu/model.py``).
+
+The same surface and ``results`` keys as the JAX package's Model for the
+main path: ``Model(design)``, ``analyze_unloaded``, ``prepare_case_inputs``,
+``analyze_cases`` (its default, legacy fixed-point dispatch),
+``solve_eigen``, ``calc_outputs`` and ``run_raft``.
+
+Work split:
+ - host, float64 on the CPU: geometry packing, statics, the per-case
+   mooring equilibrium and linearization, the response metrics;
+ - the working device (``cuda`` by default): the batched case dynamics —
+   wave kinematics at every strip node, Froude–Krylov excitation, the
+   drag-linearization fixed point and its 12x12 Gauss–Jordan solves, all
+   cases at once.
+"""
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.convert import case_args_from_numpy
+from raft_tpu_torch.dynamics import solve_dynamics
+from raft_tpu_torch.fatigue import dirlik_del
+from raft_tpu_torch.geometry import pack_nodes, process_members
+from raft_tpu_torch.health import log_report, report_dict, report_to_numpy
+from raft_tpu_torch.hydro import (
+    added_mass_morison,
+    excitation_froude_krylov,
+    make_wave_spectrum,
+)
+from raft_tpu_torch.io.schema import cases_as_dicts, get_from_dict, load_design
+from raft_tpu_torch.mooring import (
+    case_mooring,
+    coupled_stiffness,
+    line_forces,
+    parse_mooring,
+    BRIDLES_NOT_PORTED,
+)
+from raft_tpu_torch.statics import compute_statics, member_inertia
+from raft_tpu_torch.utils.frames import translate_matrix_6to6
+from raft_tpu_torch.utils.placement import (
+    HOST,
+    HOST_DTYPE,
+    complex_dtype,
+    resolve_device,
+    resolve_dtype,
+)
+from raft_tpu_torch.utils.profiling import logger, timer
+from raft_tpu_torch.waves import wave_kinematics, wave_number
+
+_RAD2DEG = 57.29577951308232
+
+_SPECTRUM_CODES = {"still": 0, "none": 0, "unit": 1, "JONSWAP": 2}
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, queue 1 step {item})")
+
+
+def _host(a):
+    return torch.as_tensor(np.asarray(a, np.float64))
+
+
+def _np_dtype(dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def make_case_dynamics(w, k, depth, rho, g, XiStart, nIter, dtype, device,
+                       relax=0.8):
+    """Build the batched device function
+    ``fn(nodes, zeta[nc,nw], beta[nc], C_lin[nc,6,6], M_lin[nc,nw,6,6],
+    B_lin[nc,nw,6,6], F_add_r[nc,nw,6], F_add_i[nc,nw,6])
+    -> (Xi_r[nc,6,nw], Xi_i[nc,6,nw], SolveReport with [nc] fields)``
+    with every tensor on ``device`` in ``dtype`` (the JAX package's
+    ``one_case`` under ``vmap``)."""
+    w = torch.as_tensor(np.asarray(w).astype(_np_dtype(dtype)),
+                        device=device)
+    k = torch.as_tensor(np.asarray(k).astype(_np_dtype(dtype)),
+                        device=device)
+    dw = float(w[1] - w[0])
+    rho, depth, g = float(rho), float(depth), float(g)
+    nIter, XiStart = int(nIter), float(XiStart)
+    cdtype = complex_dtype(dtype)
+
+    def cases(nodes, zeta, beta, C_lin, M_lin, B_lin, F_add_r, F_add_i):
+        u, ud, pD = wave_kinematics(zeta.to(cdtype), beta, w, k, depth,
+                                    nodes.r, rho=rho, g=g)
+        F_iner = excitation_froude_krylov(nodes, u, ud, pD, rho)
+        Fr = F_iner.real + F_add_r
+        Fi = F_iner.imag + F_add_i
+        return solve_dynamics(nodes, u, w, dw, rho, M_lin, B_lin, C_lin,
+                              Fr, Fi, XiStart, nIter=nIter, relax=relax)
+
+    return cases
+
+
+class Model:
+    """Frequency-domain model of a moored floating wind turbine.
+
+    Parameters
+    ----------
+    design : dict | path
+        RAFT-schema design description (YAML path or parsed dict).
+    precision : 'float64' | 'float32' | None
+        Working dtype of the case dynamics; float64 by default.
+    device : 'cuda' | 'cpu' | None
+        Device of the case dynamics; ``cuda`` by default, and then a
+        machine without CUDA raises.  Host stages always run float64 on
+        the CPU.
+    """
+
+    def __init__(self, design, precision=None, device=None, slots=None):
+        if slots is not None:
+            raise _not_ported("serving buckets (slots=)", 12)
+        if not isinstance(design, dict):
+            design = load_design(design)
+        self.design = design
+        self.nDOF = 6
+
+        settings = design.get("settings") or {}
+        min_freq = get_from_dict(settings, "min_freq", default=0.01,
+                                 dtype=float)
+        max_freq = get_from_dict(settings, "max_freq", default=1.00,
+                                 dtype=float)
+        self.XiStart = get_from_dict(settings, "XiStart", default=0.1,
+                                     dtype=float)
+        self.nIter = get_from_dict(settings, "nIter", default=15, dtype=int)
+
+        self.w = np.arange(min_freq, max_freq + 0.5 * min_freq, min_freq) \
+            * 2 * np.pi
+        self.nw = len(self.w)
+        self.dw = self.w[1] - self.w[0]
+
+        site = design["site"]
+        self.depth = get_from_dict(site, "water_depth", dtype=float)
+        self.rho_water = get_from_dict(site, "rho_water", default=1025.0)
+        self.g = get_from_dict(site, "g", default=9.81)
+        self.k = wave_number(_host(self.w), self.depth, g=self.g).numpy()
+
+        self.members = process_members(design)
+        self.nodes = pack_nodes(self.members)
+
+        self.ms = parse_mooring(design["mooring"], rho_water=self.rho_water,
+                                g=self.g)
+        if self.ms.bridles is not None:
+            raise NotImplementedError(BRIDLES_NOT_PORTED)
+        self._moor_arrays = self.ms.arrays()
+        self.yawstiff = design["platform"].get("yaw_stiffness", 0.0)
+
+        turb = design["turbine"]
+        self.mRNA = float(turb["mRNA"])
+        self.IrRNA = float(turb["IrRNA"])
+        self.hHub = float(turb["hHub"])
+        self.aeroServoMod = get_from_dict(turb, "aeroServoMod", default=1)
+        if self.aeroServoMod > 0:
+            raise _not_ported("the rotor (aeroServoMod > 0)", 6)
+
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(precision)
+        self.precision = "float32" if self.dtype == torch.float32 \
+            else "float64"
+
+        self.statics = None
+        self._ICG_turbine = None
+        self.results = {}
+        self._pipeline = None
+
+    # ------------------------------------------------------------------
+    # statics / unloaded analysis
+    # ------------------------------------------------------------------
+
+    def analyze_unloaded(self, ballast=0):
+        """Unloaded-state properties: statics, undisplaced mooring
+        stiffness, equilibrium offsets (reference
+        raft/raft_model.py:109-146)."""
+        if ballast:
+            raise _not_ported("ballast adjustment", 5)
+        z6 = torch.zeros(6, dtype=HOST_DTYPE)
+        self.C_moor0 = coupled_stiffness(z6, *self._moor_arrays).numpy()
+        self.F_moor0 = line_forces(z6, *self._moor_arrays)[0].numpy()
+
+        with timer("statics"):
+            self.statics = compute_statics(
+                self.members, self.design["turbine"], self.rho_water, self.g
+            )
+            self._A_morison = added_mass_morison(
+                self.nodes, self.rho_water).numpy()
+
+        self.results["properties"] = {}
+        Xi0 = self._mooring_and_offsets(np.zeros((1, 6)))[0][0]
+        self.Xi0_unloaded = Xi0
+        self.results["properties"]["offset_unloaded"] = Xi0
+        return self.results
+
+    def import_bem(self, file1, file3=None):
+        raise _not_ported("potential-flow coefficients (import_bem)", 9)
+
+    def run_bem(self, *args, **kwargs):
+        raise _not_ported("the native BEM solver (run_bem)", 9)
+
+    def _mooring_and_offsets(self, F_aero0):
+        """Mean offsets + linearized mooring for a batch of mean-load
+        vectors [ncase, 6] (reference raft/raft_model.py:332-392), all
+        cases in one batched host solve."""
+        st = self.statics
+        out = case_mooring(
+            _host(np.atleast_2d(F_aero0)), float(st.mass), float(st.V),
+            _host(st.rCG_TOT), _host([0.0, 0.0, st.zMeta]), float(st.AWP),
+            *self._moor_arrays, rho=self.rho_water, g=self.g,
+            yawstiff=self.yawstiff,
+        )
+        return tuple(o.detach().numpy() for o in out)
+
+    # ------------------------------------------------------------------
+    # eigen analysis
+    # ------------------------------------------------------------------
+
+    def solve_eigen(self, display=1):
+        """Rigid-body natural frequencies and modes
+        (reference raft/raft_model.py:396-501)."""
+        st = self.statics
+        M_tot = st.M_struc + self._A_morison
+        C_tot = (st.C_struc + st.C_hydro + self.C_moor0).copy()
+        C_tot[5, 5] += self.yawstiff
+
+        for i in range(6):
+            if M_tot[i, i] < 1.0 or C_tot[i, i] < 1.0:
+                raise RuntimeError(
+                    f"System matrices have small/negative diagonal at DOF "
+                    f"{i}: M={M_tot[i, i]:.3g} C={C_tot[i, i]:.3g}"
+                )
+
+        eigenvals, eigenvectors = np.linalg.eig(np.linalg.solve(M_tot, C_tot))
+        if np.any(eigenvals <= 0.0):
+            raise RuntimeError("zero or negative system eigenvalues detected")
+
+        # greedy DOF-dominance sorting, rotational DOFs claimed first
+        # (reference raft_model.py:434-449)
+        ind_list = []
+        for i in range(5, -1, -1):
+            vec = np.abs(eigenvectors[i, :]).copy()
+            for _ in range(6):
+                ind = int(np.argmax(vec))
+                if ind in ind_list:
+                    vec[ind] = 0.0
+                else:
+                    ind_list.append(ind)
+                    break
+        ind_list.reverse()
+
+        fns = np.sqrt(np.real(eigenvals[ind_list])) / 2.0 / np.pi
+        modes = np.real(eigenvectors[:, ind_list])
+
+        if display:
+            print("\n--------- Natural frequencies and mode shapes ---------")
+            print("Mode        1         2         3         4         5    "
+                  "     6")
+            print("Fn (Hz)" + "".join(f"{fn:10.4f}" for fn in fns))
+            for i in range(6):
+                print(f"DOF {i+1}  "
+                      + "".join(f"{modes[i, j]:10.4f}" for j in range(6)))
+            print("-------------------------------------------------------")
+
+        self.results["eigen"] = {"frequencies": fns, "modes": modes}
+        return fns, modes
+
+    # ------------------------------------------------------------------
+    # case analysis (the hot path)
+    # ------------------------------------------------------------------
+
+    def _case_arrays(self, cases):
+        ncase = len(cases)
+        spec = np.zeros(ncase, int)
+        height = np.zeros(ncase)
+        period = np.ones(ncase)
+        beta = np.zeros(ncase)
+        for i, c in enumerate(cases):
+            s = str(c.get("wave_spectrum", "unit"))
+            if s not in _SPECTRUM_CODES:
+                raise ValueError(f"Wave spectrum input '{s}' not recognized.")
+            spec[i] = _SPECTRUM_CODES[s]
+            height[i] = float(c.get("wave_height", 0.0))
+            period[i] = float(c.get("wave_period", 1.0))
+            # wave heading is given in degrees in the design schema
+            beta[i] = np.deg2rad(float(c.get("wave_heading", 0.0)))
+        return spec, height, period, beta
+
+    def case_pipeline_fn(self, checkable=False, wrap=None):
+        """The batched device function of the case dynamics:
+        (zeta[nc,nw], beta[nc], C_lin[nc,6,6], M_lin[nc,nw,6,6],
+        B_lin[nc,nw,6,6], F_add_r[nc,nw,6], F_add_i[nc,nw,6]) as tensors on
+        the Model's device and dtype
+        -> (Xi_r[nc,6,nw], Xi_i[nc,6,nw], SolveReport with [nc] fields)."""
+        if checkable or wrap is not None:
+            raise _not_ported("the NaN-checking debug pipeline", 11)
+        cases = make_case_dynamics(
+            self.w, self.k, self.depth, self.rho_water, self.g,
+            self.XiStart, self.nIter, self.dtype, self.device,
+        )
+        nodes = self.nodes.to(self.device, self.dtype)
+        return lambda *a: cases(nodes, *a)
+
+    def prepare_case_inputs(self, cases=None, verbose=True):
+        """Host-side setup for the batched case solve: mooring
+        equilibrium/linearization per case and assembly of the linear-term
+        arrays (reference solveStatics + raft/raft_model.py:504-555).
+
+        Returns (args, aux): ``args`` is the input tuple of
+        :meth:`case_pipeline_fn` as NumPy arrays in the working dtype (see
+        :func:`raft_tpu_torch.convert.case_args_from_numpy`); ``aux``
+        carries the per-case quantities the output stage needs.
+        """
+        if cases is None:
+            cases = cases_as_dicts(self.design)
+        ncase = len(cases)
+        if ncase == 0:
+            raise ValueError("design has no cases table")
+        if self.statics is None:
+            self.analyze_unloaded()
+        st = self.statics
+
+        spec, height, period, beta = self._case_arrays(cases)
+        zeta = make_wave_spectrum(
+            _host(self.w)[None, :], torch.as_tensor(spec)[:, None],
+            _host(height)[:, None], _host(period)[:, None]).numpy()
+
+        # aero is off in this slice, so the mean loads are zero
+        F_aero0 = np.zeros((ncase, 6))
+        with timer("mooring_offsets"):
+            Xi0, C_moor, _, T_moor, J_moor, _ = self._mooring_and_offsets(
+                F_aero0)
+        if verbose:
+            for i in range(ncase):
+                print(
+                    f"Case {i+1}: mean offsets surge={Xi0[i,0]:.2f} m, "
+                    f"pitch={Xi0[i,4]*_RAD2DEG:.2f} deg"
+                )
+
+        dt = _np_dtype(self.dtype)
+        M_hub = np.zeros((ncase, self.nw, 6, 6))
+        M_lin = (
+            st.M_struc[None, None, :, :] + self._A_morison[None, None, :, :]
+            + M_hub
+        ).astype(dt)
+        B_lin = np.zeros((ncase, self.nw, 6, 6), dt)
+        C_lin = (
+            st.C_struc[None, :, :] + st.C_hydro[None, :, :] + C_moor
+        ).astype(dt)
+        F_add_r = np.zeros((ncase, self.nw, 6), dt)  # BEM excitation slot
+        F_add_i = np.zeros((ncase, self.nw, 6), dt)
+
+        args = (zeta.astype(dt), beta.astype(dt), C_lin, M_lin, B_lin,
+                F_add_r, F_add_i)
+        aux = dict(
+            cases=cases, ncase=ncase, zeta=zeta, Xi0=Xi0,
+            T_moor=T_moor, J_moor=J_moor, F_aero0=F_aero0,
+        )
+        return args, aux
+
+    def analyze_cases(self, display=0, runPyHAMS=False, meshDir=None,
+                      solver=None, fixed_point="legacy"):
+        """Run all load cases: per-case statics (mooring equilibrium), the
+        batched dynamics solve on the Model's device, and the response
+        metrics (reference raft/raft_model.py:149-309).
+
+        Only the legacy fixed-point dispatch is ported: the waterfall and
+        fused engines (``fixed_point=``), the potential-flow solve
+        (``runPyHAMS``/``meshDir``) and a delegated ``solver`` raise
+        ``NotImplementedError``.
+        """
+        if fixed_point != "legacy":
+            raise _not_ported(f"the {fixed_point!r} fixed-point engine", 7)
+        if runPyHAMS or meshDir:
+            raise _not_ported("the potential-flow solve (runPyHAMS)", 9)
+        if solver is not None:
+            raise _not_ported("delegated solves (solver=)", 12)
+        with timer("case_prep"):
+            args, aux = self.prepare_case_inputs()
+        cases = aux["cases"]
+        ncase = aux["ncase"]
+        zeta = aux["zeta"]
+        Xi0 = aux["Xi0"]
+        T_moor = aux["T_moor"]
+        J_moor = aux["J_moor"]
+        nLines = T_moor.shape[-1] // 2
+
+        # ---- the batched device solve ----
+        if self._pipeline is None:
+            self._pipeline = self.case_pipeline_fn()
+        with timer("rao_solve"):
+            dev_args = case_args_from_numpy(args, self.device, self.dtype)
+            xr, xi, report = self._pipeline(*dev_args)
+            Xi = (xr.to(HOST, HOST_DTYPE).numpy()
+                  + 1j * xi.to(HOST, HOST_DTYPE).numpy())   # [case,6,nw]
+            report = report_to_numpy(report)
+        self.Xi = Xi
+        self.zeta = zeta
+        self.solve_report = report
+        self.results["solve_report"] = report_dict(report)
+        log_report(report, label="case", log=logger)
+
+        # ---- response metrics (reference raft_fowt.py:706-833 and
+        # raft_model.py:158-309) ----
+        self._init_case_metrics(ncase, nLines)
+        m = self.results["case_metrics"]
+        settings = self.design.get("settings") or {}
+        m_tower = get_from_dict(settings, "wohler_exp_tower", default=4.0)
+        m_chain = get_from_dict(settings, "wohler_exp_mooring", default=3.0)
+        for i in range(ncase):
+            self._save_case_outputs(m, i, Xi0[i], Xi[i], zeta[i], cases[i])
+            m["Mbase_DEL"][i] = dirlik_del(m["Mbase_PSD"][i], self.w, m_tower)
+            # mooring tension spectra: T_amps = J_moor @ Xi
+            T_amps = J_moor[i] @ Xi[i]  # [2nL, nw]
+            m["Tmoor_avg"][i] = T_moor[i]
+            for iT in range(2 * nLines):
+                TRMS = float(np.sqrt(np.sum(np.abs(T_amps[iT]) ** 2)
+                                     * self.w[0]))
+                m["Tmoor_std"][i, iT] = TRMS
+                m["Tmoor_max"][i, iT] = T_moor[i, iT] + 3 * TRMS
+                m["Tmoor_PSD"][i, iT] = np.abs(T_amps[iT]) ** 2
+                m["Tmoor_DEL"][i, iT] = dirlik_del(
+                    m["Tmoor_PSD"][i, iT], self.w, m_chain
+                )
+            if display:
+                self._print_case_stats(i, nLines)
+
+        self.results["means"] = {
+            "aero force": aux["F_aero0"],
+            "platform offset": Xi0,
+        }
+        self.results["response"] = {}
+        return self.results
+
+    def _init_case_metrics(self, ncase, nLines):
+        m = {}
+        for ch in ["surge", "sway", "heave", "roll", "pitch", "yaw", "AxRNA",
+                   "Mbase", "omega", "torque", "power", "bPitch"]:
+            m[f"{ch}_avg"] = np.zeros(ncase)
+            m[f"{ch}_std"] = np.zeros(ncase)
+            m[f"{ch}_max"] = np.zeros(ncase)
+            m[f"{ch}_PSD"] = np.zeros((ncase, self.nw))
+        m["Mbase_DEL"] = np.zeros(ncase)
+        for ch in ["Tmoor_avg", "Tmoor_std", "Tmoor_max", "Tmoor_DEL"]:
+            m[ch] = np.zeros((ncase, 2 * nLines))
+        m["Tmoor_PSD"] = np.zeros((ncase, 2 * nLines, self.nw))
+        m["wind_PSD"] = np.zeros((ncase, self.nw))
+        m["wave_PSD"] = np.zeros((ncase, self.nw))
+        self.results["case_metrics"] = m
+
+    def _save_case_outputs(self, m, iCase, Xi0, Xi, zeta, case):
+        """Platform/turbine response statistics for one case
+        (reference raft/raft_fowt.py:706-833; the rotor channels stay zero
+        with aero off)."""
+        st = self.statics
+        dw = self.dw
+        w = self.w
+
+        def rms(x):
+            return float(np.sqrt(np.sum(np.abs(np.asarray(x)) ** 2) * dw))
+
+        for j, ch in enumerate(["surge", "sway", "heave"]):
+            m[f"{ch}_avg"][iCase] = Xi0[j]
+            m[f"{ch}_std"][iCase] = rms(Xi[j])
+            m[f"{ch}_PSD"][iCase] = np.abs(Xi[j]) ** 2
+        m["surge_max"][iCase] = Xi0[0] + 3 * m["surge_std"][iCase]
+        # reference quirk: sway_max built from heave_std (raft_fowt.py:716)
+        m["sway_max"][iCase] = Xi0[1] + 3 * m["heave_std"][iCase]
+        m["heave_max"][iCase] = Xi0[2] + 3 * m["heave_std"][iCase]
+
+        for j, ch in zip([3, 4, 5], ["roll", "pitch", "yaw"]):
+            deg = Xi[j] * _RAD2DEG
+            m[f"{ch}_avg"][iCase] = Xi0[j] * _RAD2DEG
+            m[f"{ch}_std"][iCase] = rms(deg)
+            m[f"{ch}_max"][iCase] = Xi0[j] * _RAD2DEG \
+                + 3 * m[f"{ch}_std"][iCase]
+            m[f"{ch}_PSD"][iCase] = np.abs(deg) ** 2
+
+        XiHub = Xi[0] + self.hHub * Xi[4]
+        m["AxRNA_std"][iCase] = rms(XiHub * w**2)
+        m["AxRNA_PSD"][iCase] = np.abs(XiHub * w**2) ** 2
+
+        # tower-base bending moment (reference raft_fowt.py:748-769); the
+        # case-invariant tower inertia terms are cached across cases
+        m_turbine = st.mtower + self.mRNA
+        zCG_turbine = (st.rCG_tow[2] * st.mtower + self.hHub * self.mRNA) \
+            / m_turbine
+        tower = self.members[-1]
+        zBase = tower.rA[2]
+        hArm = zCG_turbine - zBase
+        aCG = -(w**2) * (Xi[0] + zCG_turbine * Xi[4])
+        if self._ICG_turbine is None:
+            M_tower = _host(member_inertia(tower)[0])
+            self._ICG_turbine = (
+                translate_matrix_6to6(
+                    M_tower, _host([0.0, 0.0, -zCG_turbine]))[4, 4].item()
+                + self.mRNA * (self.hHub - zCG_turbine) ** 2
+                + self.IrRNA
+            )
+        ICG_turbine = self._ICG_turbine
+        M_I = -m_turbine * aCG * hArm - ICG_turbine * (-(w**2) * Xi[4])
+        M_w = m_turbine * self.g * hArm * Xi[4]
+        # M_F_aero is zeroed like the reference (raft_fowt.py:760)
+        dynamic_moment = M_I + M_w
+        # the aero mean-load moment term is zero with aero off
+        m["Mbase_avg"][iCase] = m_turbine * self.g * hArm * np.sin(Xi0[4])
+        m["Mbase_std"][iCase] = rms(dynamic_moment)
+        m["Mbase_max"][iCase] = m["Mbase_avg"][iCase] \
+            + 3 * m["Mbase_std"][iCase]
+        m["Mbase_PSD"][iCase] = np.abs(dynamic_moment) ** 2
+
+        m["wave_PSD"][iCase] = np.abs(zeta) ** 2
+
+    def _print_case_stats(self, i, nLines):
+        m = self.results["case_metrics"]
+        print(f"-------------------- Case {i+1} Statistics "
+              "--------------------")
+        print("Response channel     Average     RMS         Maximum")
+        for ch, unit in [("surge", "m"), ("sway", "m"), ("heave", "m"),
+                         ("roll", "deg"), ("pitch", "deg"), ("yaw", "deg")]:
+            print(
+                f"{ch+' ('+unit+')':19s}{m[ch+'_avg'][i]:10.2e}  "
+                f"{m[ch+'_std'][i]:10.2e}  {m[ch+'_max'][i]:10.2e}"
+            )
+        print(
+            f"{'nacelle acc. (m/s)':19s}{m['AxRNA_avg'][i]:10.2e}  "
+            f"{m['AxRNA_std'][i]:10.2e}  {m['AxRNA_max'][i]:10.2e}"
+        )
+        print(
+            f"{'tower bending (Nm)':19s}{m['Mbase_avg'][i]:10.2e}  "
+            f"{m['Mbase_std'][i]:10.2e}  {m['Mbase_max'][i]:10.2e}"
+        )
+        for j in range(nLines):
+            jj = j + nLines
+            print(
+                f"line {j+1} tension (N) {m['Tmoor_avg'][i, jj]:10.2e}  "
+                f"{m['Tmoor_std'][i, jj]:10.2e}  {m['Tmoor_max'][i, jj]:10.2e}"
+            )
+        print("-----------------------------------------------------------")
+
+    # ------------------------------------------------------------------
+    # outputs
+    # ------------------------------------------------------------------
+
+    def calc_outputs(self):
+        """Populate results['properties'] and results['response']
+        (reference raft/raft_model.py:660-725)."""
+        st = self.statics
+        if "properties" in self.results:
+            p = self.results["properties"]
+            p["tower mass"] = st.mtower
+            p["tower CG"] = st.rCG_tow
+            p["substructure mass"] = st.msubstruc
+            p["substructure CG"] = st.rCG_sub
+            p["shell mass"] = st.mshell
+            p["ballast mass"] = st.mballast
+            p["ballast densities"] = st.pb
+            p["total mass"] = st.mass
+            p["total CG"] = st.rCG_TOT
+            p["roll inertia at subCG"] = st.M_struc_subCM[3, 3]
+            p["pitch inertia at subCG"] = st.M_struc_subCM[4, 4]
+            p["yaw inertia at subCG"] = st.M_struc_subCM[5, 5]
+            p["Buoyancy (pgV)"] = self.rho_water * self.g * st.V
+            p["Center of Buoyancy"] = st.rCB
+            p["C stiffness matrix"] = st.C_hydro
+            p["F_lines0"] = self.F_moor0
+            p["C_lines0"] = self.C_moor0
+            p["M support structure"] = st.M_struc_subCM
+            p["A support structure"] = self._A_morison.copy()
+            p["C support structure"] = st.C_struc_sub + st.C_hydro \
+                + self.C_moor0
+
+        if hasattr(self, "Xi"):
+            r = self.results.setdefault("response", {})
+            with np.errstate(divide="ignore", invalid="ignore"):
+                # bins where the wave spectrum underflows to exactly zero
+                # carry zero response too; report a zero RAO there
+                zeta = np.where(np.abs(self.zeta) > 0, self.zeta, np.nan)
+                RAOmag = np.abs(self.Xi / zeta[:, None, :])  # [case, 6, nw]
+                RAOmag = np.where(np.isfinite(RAOmag), RAOmag, 0.0)
+            r["frequencies"] = self.w / 2 / np.pi
+            r["wave elevation"] = self.zeta
+            r["Xi"] = self.Xi
+            r["surge RAO"] = RAOmag[:, 0]
+            r["sway RAO"] = RAOmag[:, 1]
+            r["heave RAO"] = RAOmag[:, 2]
+            # reference key/index mismatch kept: 'pitch RAO' holds DOF 3 and
+            # 'roll RAO' holds DOF 4 (raft_model.py:715-716)
+            r["pitch RAO"] = RAOmag[:, 3]
+            r["roll RAO"] = RAOmag[:, 4]
+            r["yaw RAO"] = RAOmag[:, 5]
+            r["nacelle acceleration"] = (
+                self.w**2 * (self.Xi[:, 0] + self.Xi[:, 4] * self.hHub)
+            )
+        return self.results
+
+    # camelCase aliases for reference-API compatibility
+    analyzeUnloaded = analyze_unloaded
+    analyzeCases = analyze_cases
+    solveEigen = solve_eigen
+    calcOutputs = calc_outputs
+
+
+def run_raft(input_file, plot=0, ballast=0, run_native_bem=False, **kwargs):
+    """Set up and run the full analysis of a design dict or YAML path
+    (reference raft/raft_model.py:1092-1135)."""
+    if plot:
+        raise _not_ported("plotting", 11)
+    if run_native_bem:
+        raise _not_ported("the native BEM solver", 9)
+    design = load_design(input_file)
+    print(" --- making model ---")
+    model = Model(design, **kwargs)
+    print(" --- analyzing unloaded ---")
+    model.analyze_unloaded(ballast=ballast)
+    print(" --- analyzing cases ---")
+    model.analyze_cases()
+    model.solve_eigen()
+    model.calc_outputs()
+    return model
+
+
+runRAFT = run_raft

@@ -29,8 +29,11 @@ setup(
         "TPU-native frequency-domain dynamics framework for floating "
         "offshore wind turbines (RAFT-capability, JAX/XLA core)"
     ),
-    packages=["raft_tpu", "raft_tpu.io", "raft_tpu.utils"],
-    package_data={"raft_tpu": ["native/*.cpp", "native/Makefile"]},
+    packages=["raft_tpu", "raft_tpu.io", "raft_tpu.utils",
+              "raft_tpu_torch", "raft_tpu_torch.io", "raft_tpu_torch.utils",
+              "raft_tpu_torch.kernels"],
+    package_data={"raft_tpu": ["native/*.cpp", "native/Makefile"],
+                  "raft_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.9",
     # numpy>=2.0: np.trapezoid (raft_tpu/fatigue.py, tests)
     install_requires=["numpy>=2.0", "scipy", "pyyaml", "jax"],

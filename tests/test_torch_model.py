@@ -1,0 +1,226 @@
+"""The port's whole slice against raft_tpu on the CPU: Model (statics,
+eigenfrequencies, Xi, the SolveReport and every case_metrics channel), the
+device pipeline fed the JAX model's own inputs through raft_tpu_torch.
+convert, and the fault cases of tests/test_fault_injection.py."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import raft_tpu
+from raft_tpu.designs import deep_spar, demo_semi
+from raft_tpu.dynamics import solve_complex_6x6_ladder as jax_ladder
+import raft_tpu_torch
+from raft_tpu_torch.convert import case_args_from_numpy, nodes_from_numpy
+from raft_tpu_torch.dynamics import solve_complex_6x6_ladder
+from raft_tpu_torch.model import make_case_dynamics
+
+RTOL = 1e-8          # the bar of tests/test_parity.py
+DESIGNS = {"spar": deep_spar, "semi": demo_semi}
+
+
+def _design(name):
+    return DESIGNS[name](n_cases=2, nw_settings=(0.05, 0.6))
+
+
+def _close(a, b, rtol=RTOL):
+    """max |a - b| within rtol of max |b|."""
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    scale = np.abs(b).max()
+    assert np.abs(a - b).max() <= rtol * scale, (
+        np.abs(a - b).max() / scale if scale else np.abs(a - b).max())
+
+
+@pytest.fixture(scope="module", params=sorted(DESIGNS))
+def models(request):
+    jm = raft_tpu.Model(_design(request.param), precision="float64")
+    jm.analyze_unloaded()
+    jm.analyze_cases()
+    jm.solve_eigen(display=0)
+    tm = raft_tpu_torch.Model(_design(request.param), device="cpu")
+    tm.analyze_unloaded()
+    tm.analyze_cases()
+    tm.solve_eigen(display=0)
+    return jm, tm
+
+
+def test_statics_and_unloaded_mooring_match(models):
+    jm, tm = models
+    for name in ("M_struc", "C_struc", "C_hydro", "W_hydro", "rCG_TOT",
+                 "M_struc_subCM"):
+        np.testing.assert_allclose(getattr(tm.statics, name),
+                                   getattr(jm.statics, name), rtol=1e-12,
+                                   atol=1e-12)
+    _close(tm._A_morison, jm._A_morison)
+    _close(tm.C_moor0, jm.C_moor0)
+    _close(tm.F_moor0, jm.F_moor0)
+    _close(tm.Xi0_unloaded, jm.Xi0_unloaded)
+
+
+def test_eigenfrequencies_match(models):
+    jm, tm = models
+    np.testing.assert_allclose(tm.results["eigen"]["frequencies"],
+                               jm.results["eigen"]["frequencies"],
+                               rtol=RTOL)
+
+
+def test_xi_parity(models):
+    jm, tm = models
+    _close(tm.Xi, jm.Xi)
+
+
+def test_solve_report_parity(models):
+    jm, tm = models
+    rj, rt = jm.solve_report, tm.solve_report
+    for name in ("converged", "iters", "nonfinite", "recovery_tier"):
+        np.testing.assert_array_equal(getattr(rt, name), getattr(rj, name))
+    assert rt.converged.all()
+    np.testing.assert_allclose(rt.cond, rj.cond, rtol=1e-6)
+    assert (rt.residual < 1e-12).all()
+
+
+_DOF_GROUPS = (("surge", "sway", "heave"), ("roll", "pitch", "yaw"))
+
+
+def test_case_metrics_parity(models):
+    """Every channel within 1e-8 of its scale.  A DOF that the head-sea,
+    symmetric-mooring cases leave at zero (sway, roll, yaw) carries
+    round-off only (~1e-14 m), so its scale is the largest channel of
+    the same statistic in its DOF group."""
+    jm, tm = models
+    mj, mt = jm.results["case_metrics"], tm.results["case_metrics"]
+    assert sorted(mt) == sorted(mj)
+    for ch in mj:
+        name, stat = ch.split("_", 1)
+        group = next((g for g in _DOF_GROUPS if name in g), (name,))
+        scale = max(np.abs(mj[f"{g}_{stat}"]).max() for g in group)
+        if scale == 0:
+            np.testing.assert_array_equal(mt[ch], mj[ch], err_msg=ch)
+        else:
+            err = np.abs(mt[ch] - mj[ch]).max()
+            assert err <= RTOL * scale, (ch, err / scale)
+
+
+def test_pipeline_on_jax_inputs(models):
+    """The port's device pipeline fed the JAX model's nodes and case
+    inputs (convert.nodes_from_numpy / case_args_from_numpy)."""
+    jm, _ = models
+    args, _ = jm.prepare_case_inputs(verbose=False)
+    xr, xi, rep = jax.jit(jm.case_pipeline_fn())(*args)
+    nodes = nodes_from_numpy(dataclasses.asdict(jm.nodes), "cpu",
+                             torch.float64)
+    fn = make_case_dynamics(jm.w, jm.k, jm.depth, jm.rho_water, jm.g,
+                            jm.XiStart, jm.nIter, torch.float64, "cpu")
+    txr, txi, trep = fn(nodes, *case_args_from_numpy(args, "cpu",
+                                                      torch.float64))
+    _close(txr.numpy() + 1j * txi.numpy(),
+           np.asarray(xr) + 1j * np.asarray(xi))
+    np.testing.assert_array_equal(trep.iters.numpy(), np.asarray(rep.iters))
+    np.testing.assert_array_equal(trep.recovery_tier.numpy(),
+                                  np.asarray(rep.recovery_tier))
+
+
+def test_case_pipeline_nan_quarantine_is_per_lane():
+    """tests/test_fault_injection.py:133 on the port: a NaN'd C_lin in
+    case 1 freezes that lane only, flagged as in raft_tpu; the other lane
+    stays bit-identical to a clean run."""
+    jm = raft_tpu.Model(_design("spar"), precision="float64")
+    jm.analyze_unloaded()
+    args, _ = jm.prepare_case_inputs(verbose=False)
+    bad = [np.array(a, copy=True) for a in args]
+    bad[2][1] = np.nan
+    _, _, jrep = jax.jit(jm.case_pipeline_fn())(*bad)
+
+    tm = raft_tpu_torch.Model(_design("spar"), device="cpu")
+    tm.analyze_unloaded()
+    targs, _ = tm.prepare_case_inputs(verbose=False)
+    fn = tm.case_pipeline_fn()
+    xr0, xi0, rep0 = fn(*case_args_from_numpy(targs, "cpu", torch.float64))
+    assert rep0.converged.all() and not rep0.nonfinite.any()
+    tbad = [np.array(a, copy=True) for a in targs]
+    tbad[2][1] = np.nan
+    xr, xi, rep = fn(*case_args_from_numpy(tbad, "cpu", torch.float64))
+    assert torch.isfinite(xr).all() and torch.isfinite(xi).all()
+    assert rep.nonfinite.tolist() == [False, True]
+    np.testing.assert_array_equal(rep.nonfinite.numpy(),
+                                  np.asarray(jrep.nonfinite))
+    np.testing.assert_array_equal(rep.converged.numpy(),
+                                  np.asarray(jrep.converged))
+    assert torch.equal(xr[0], xr0[0]) and torch.equal(xi[0], xi0[0])
+
+
+def test_nonfinite_excitation_is_quarantined_like_raft_tpu():
+    """health.inject_nonfinite_excitation (the chaos harness's nan_lane
+    surface) NaNs every lane's zeta: both packages flag every lane and
+    return finite (zero) responses."""
+    from raft_tpu.health import inject_nonfinite_excitation as jinject
+    from raft_tpu_torch.health import inject_nonfinite_excitation
+
+    jm = raft_tpu.Model(_design("spar"), precision="float64")
+    jm.analyze_unloaded()
+    jargs, _ = jm.prepare_case_inputs(verbose=False)
+    jxr, _, jrep = jax.jit(jm.case_pipeline_fn())(*jinject(jargs))
+    tm = raft_tpu_torch.Model(_design("spar"), device="cpu")
+    tm.analyze_unloaded()
+    args, _ = tm.prepare_case_inputs(verbose=False)
+    bad = inject_nonfinite_excitation(args)
+    assert np.isnan(bad[0]).all() and not np.isnan(args[0]).any()
+    xr, xi, rep = tm.case_pipeline_fn()(
+        *case_args_from_numpy(bad, "cpu", torch.float64))
+    np.testing.assert_array_equal(rep.nonfinite.numpy(),
+                                  np.asarray(jrep.nonfinite))
+    assert rep.nonfinite.all() and not rep.converged.any()
+    assert torch.isfinite(xr).all() and torch.isfinite(xi).all()
+    np.testing.assert_array_equal(xr.numpy(), np.asarray(jxr))
+
+
+def test_recovery_ladder_tikhonov_on_singular_Z():
+    """tests/test_fault_injection.py:156 on the port: the rank-deficient
+    zero-damping bin escalates to tier 2 in both packages, the others
+    stay at the baseline."""
+    rng = np.random.default_rng(0)
+    nw = 8
+    Zr = np.stack([
+        np.diag(rng.uniform(1.0, 2.0, 6)) + 0.05 * rng.standard_normal((6, 6))
+        for _ in range(nw)
+    ])
+    Zi = np.zeros((nw, 6, 6))
+    Fr = rng.standard_normal((nw, 6))
+    Fi = rng.standard_normal((nw, 6))
+    Zr[3, 0, :] = 0.0
+    Zr[3, :, 0] = 0.0
+    jxr, jxi, _, jcond, jtier = map(np.asarray, jax_ladder(Zr, Zi, Fr, Fi))
+    xr, xi, resid, cond, tier = (t.numpy() for t in solve_complex_6x6_ladder(
+        *(torch.as_tensor(a) for a in (Zr, Zi, Fr, Fi))))
+    np.testing.assert_array_equal(tier, jtier)
+    assert tier[3] == 2 and (np.delete(tier, 3) == 0).all()
+    assert np.isfinite(xr).all() and np.isfinite(xi).all()
+    _close(xr + 1j * xi, jxr + 1j * jxi)
+    assert np.isinf(cond[3]) or cond[3] > 1e12
+    np.testing.assert_allclose(np.delete(cond, 3), np.delete(jcond, 3),
+                               rtol=1e-10)
+
+
+def test_model_without_device_needs_cuda(monkeypatch):
+    """Model(design) with no device runs on the card, so without CUDA it
+    raises instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        raft_tpu_torch.Model(_design("spar"))
+
+
+def test_unported_paths_raise_not_implemented():
+    tm = raft_tpu_torch.Model(_design("spar"), device="cpu")
+    for call in (lambda: tm.analyze_cases(fixed_point="waterfall"),
+                 lambda: tm.analyze_cases(runPyHAMS=True),
+                 lambda: tm.case_pipeline_fn(checkable=True),
+                 lambda: tm.run_bem()):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        raft_tpu_torch.Model(_design("spar"), device="cpu",
+                             precision="mixed")

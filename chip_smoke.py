@@ -5,20 +5,40 @@
 Phases (each prints a line; any failure raises and exits non-zero):
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. build of the CUDA kernel from raft_tpu_torch/csrc/gj_solve.cu (nvcc,
-   sm_90a), with the compiler's register report and the build seconds;
-3. the kernel against its plain PyTorch version on the card at the main
-   path's shape [1536, 12, 13], in float64 and float32, with zero-diagonal
-   systems (row swaps) and one NaN system; kernel, plain and
+2. build of the CUDA kernels raft_tpu_torch/csrc/gj_solve.cu and
+   fused_block.cu (one nvcc each, started together, sm_90a), with the
+   compiler's register report and the build seconds;
+3. the Gauss-Jordan kernel against its plain PyTorch version on the card
+   at the main path's shape [1536, 12, 13], in float64 and float32, with
+   zero-diagonal systems (row swaps) and one NaN system; kernel, plain and
    ``torch.linalg.solve`` (the yardstick; the port never calls it) times
    by CUDA events, and the kernel's bound;
-4. the main path in float64: the flagship design (128 frequencies x 12
-   JONSWAP cases) through ``Model(design)`` on the card —
-   ``analyze_unloaded``, ``solve_eigen`` and ``analyze_cases`` twice; the
-   second, warm call is timed and its kernel launches counted, and its
-   response is held against the same port run on the CPU;
-5. the main path in float32 on the card, RAO L-inf against the float64
-   card run.
+4. the fused fixed-point block kernel against its plain version on the
+   flagship's own prelude operands at rung 16, K = 4, float64 and
+   float32, from the state after one block (lanes converge inside this
+   one) with one NaN lane; kernel, plain and the port's torch waterfall
+   block (the nearest comparison: no single PyTorch call computes this
+   function) times by CUDA events, and the kernel's bound;
+5. the legacy main path in float64: the flagship design (128
+   frequencies x 12 JONSWAP cases) through ``Model(design)`` on the card
+   — ``analyze_unloaded``, ``solve_eigen`` and ``analyze_cases`` twice;
+   the second, warm call is timed and its kernel launches counted, and
+   its response is held against the same port run on the CPU;
+6. the legacy main path in float32 on the card, RAO L-inf against the
+   float64 card run;
+7. ``analyze_cases(fixed_point="waterfall")``, float64: Xi and every
+   SolveReport field bit-identical to the legacy card run;
+8. ``analyze_cases(fixed_point="fused")``, float64: flags identical to
+   legacy, Xi within rtol 1e-8 / atol 1e-12, one fused launch per
+   block and only the finalize ladder's 6 Gauss-Jordan launches;
+9. a heterogeneous 64-lane megabatch with per-lane node bundles through
+   ``waterfall_dispatch``: the rungs descend, the waterfall is
+   bit-identical to the legacy batch of the same lanes, the fused mode
+   agrees to round-off, and a dispatch suspended after its first block
+   and resumed is bit-identical to an uninterrupted one;
+10. mixed precision with float32 working dtype in the waterfall mode:
+    RAO against the same policy on the CPU (within 1e-4) and against
+    the float64 card run (printed; the policy's own error).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -27,6 +47,7 @@ result.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,6 +64,14 @@ PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 # estimate, the Tikhonov solve
 LADDER_SOLVES = 6
 B, N, M = 1536, 12, 13
+# the fused-kernel phase: rung, trips per block, the NaN lane (a padding
+# lane of the 12 cases)
+RUNG, K_BLOCK, NAN_LANE = 16, 4, 13
+MEGA_LANES = 64
+# RAO L-inf (relative to the peak) of the mixed-precision policy against
+# float64 on the flagship, measured on the CPU for raft_tpu and the port
+# alike: 4.24e-2 (docs/torch_port.md section 6)
+MP_POLICY_LINF = 5e-2
 
 
 def card_line():
@@ -53,7 +82,11 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters, warmup=5):
+def flagship(rt):
+    return rt.designs.flagship(0.00625, 0.8, 12)
+
+
+def cuda_ms(fn, iters, warmup=3):
     """Mean milliseconds of ``fn`` over ``iters`` back-to-back calls,
     by CUDA events."""
     for _ in range(warmup):
@@ -69,6 +102,34 @@ def cuda_ms(fn, iters, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes, flops, dtype):
+    """Least time (ms) on this card: bytes over the memory rate or
+    operations over the FP rate of ``dtype``, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def dtype_name(dtype):
+    return str(dtype).removeprefix("torch.")
+
+
+# ---------------------------------------------------------------- build
+
+def build_phase(kernel_modules):
+    t0 = time.perf_counter()
+    jobs = [(km, km.start_build(verbose=True)) for km in kernel_modules]
+    for km, job in jobs:
+        km.build(verbose=True, job=job)
+        print(f"phase build: {km.SOURCE} -> sm_90a, done "
+              f"{time.perf_counter() - t0:.2f} s after the start", flush=True)
+    print(f"phase build: {len(jobs)} kernels in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+# ----------------------------------------------------------- gj kernel
+
 def gj_inputs(dtype, seed=0):
     """[B, N, M] augmented systems: random, diagonally weighted; 64 with a
     zero diagonal (a row swap at every step); system 5 all NaN."""
@@ -83,19 +144,16 @@ def gj_inputs(dtype, seed=0):
 
 
 def gj_bound(dtype):
-    """Least time (ms) for one [B, N, M] elimination on this card: the
-    input read once, M and |pivot| written once; N steps of N*M divisions
-    and (N-1)*M multiply-subtracts per system."""
+    """One [B, N, M] elimination: the input read once, M and |pivot|
+    written once; N steps of M divisions and (N-1)*M multiply-subtracts
+    per system."""
     item = torch.finfo(dtype).bits // 8
     nbytes = (2 * B * N * M + B * N) * item
     flops = B * N * (M + 2 * (N - 1) * M)
-    t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
-        else "operations"
+    return bound(nbytes, flops, dtype)
 
 
-def kernel_phase(gk, dtype, tol):
+def gj_kernel_phase(gk, dtype, tol):
     Mx = gj_inputs(dtype)
     out_k, piv_k = gk.gj_solve(Mx)
     out_p, piv_p = gk.gj_solve_reference(Mx)
@@ -121,7 +179,7 @@ def kernel_phase(gk, dtype, tol):
     plain_ms = cuda_ms(lambda: gk.gj_solve_reference(Mx), 20)
     library_ms = cuda_ms(lambda: torch.linalg.solve(A, rhs), 50)
     bound_ms, bound_by = gj_bound(dtype)
-    print(f"phase kernel {str(dtype).split('.')[-1]}: [{B},{N},{M}] "
+    print(f"phase gj kernel {dtype_name(dtype)}: [{B},{N},{M}] "
           f"max_abs_err={err:.3e} (bar {tol:g}*max|x|={tol * x_max:.3e}) "
           f"NaN systems {nan_sys.tolist()} ms={ms:.5f} plain_ms="
           f"{plain_ms:.5f} library_ms={library_ms:.5f} bound_ms="
@@ -130,20 +188,95 @@ def kernel_phase(gk, dtype, tol):
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def run_main_path(rt, Timers, design, **kw):
+# -------------------------------------------------------- fused kernel
+
+def fused_operands(model, args, dtype):
+    """The flagship's prelude at rung RUNG on the card, advanced one torch
+    block; lane NAN_LANE's stiffness then NaN."""
+    from raft_tpu_torch.convert import case_args_from_numpy
+    from raft_tpu_torch.serve.buckets import SlotPhysics
+    from raft_tpu_torch.utils.placement import complex_dtype
+    from raft_tpu_torch.waterfall import _pad_rows, _phase_pipelines
+
+    physics = SlotPhysics.from_model(model)._replace(
+        dtype_name=dtype_name(dtype),
+        cdtype_name=dtype_name(complex_dtype(dtype)))
+    nodes = model.nodes.to("cuda", dtype)
+    dev = tuple(_pad_rows(a, RUNG)
+                for a in case_args_from_numpy(args, "cuda", dtype))
+    prelude_fn, torch_block, _ = _phase_pipelines(
+        physics, 0.8, K_BLOCK, False, False, "cuda")
+    u, Fr, Fi, state = prelude_fn(nodes, *dev)
+    C, Mm, Bm = dev[2:5]
+    state = torch_block(nodes, u, C, Mm, Bm, Fr, Fi, state)
+    C = C.clone()
+    C[NAN_LANE] = float("nan")
+    w = torch.as_tensor(physics.w.astype(np.float64), dtype=dtype,
+                        device="cuda")
+    kw = dict(w=w, dw=float(w[1] - w[0]), rho=physics.rho, relax=0.8,
+              nIter=physics.nIter, K=K_BLOCK)
+    return nodes, (u, C, Mm, Bm, Fr, Fi), state, kw, torch_block
+
+
+def fused_kernel_phase(fk, model, args, dtype, tol):
+    nodes, ops, state, kw, torch_block = fused_operands(model, args, dtype)
+    out_k = fk.fused_block(nodes, *ops, state, **kw)
+    out_p = fk.fused_block_reference(nodes, *ops, state, **kw)
+    torch.cuda.synchronize()
+    for k, name in ((0, "i"), (4, "done"), (5, "froze")):
+        if not torch.equal(out_k[k], out_p[k]):
+            raise AssertionError(f"{dtype}: fused {name} differs: "
+                                 f"{out_k[k].tolist()} {out_p[k].tolist()}")
+    if not (out_k[5][NAN_LANE] and out_k[4][NAN_LANE]):
+        raise AssertionError(f"{dtype}: NaN lane not quarantined")
+    newly = (out_k[4] & ~state[4] & ~out_k[5]).nonzero().flatten().tolist()
+    if not newly:
+        raise AssertionError(f"{dtype}: no lane converged inside the block")
+    err = max((out_k[k] - out_p[k]).abs().max().item() for k in (1, 2, 3))
+    x_max = max(out_p[k].abs().max().item() for k in (1, 2, 3))
+    if not err <= tol * x_max:
+        raise AssertionError(
+            f"{dtype}: fused kernel vs plain max|d| {err} > {tol} * {x_max}")
+    ms = cuda_ms(lambda: fk.fused_block(nodes, *ops, state, **kw), 50)
+    plain_ms = cuda_ms(
+        lambda: fk.fused_block_reference(nodes, *ops, state, **kw), 5, 1)
+    block_ms = cuda_ms(lambda: torch_block(nodes, *ops, state), 5, 1)
+    ins = (kw["w"], *(getattr(nodes, f) for f in fk._NODE_FIELDS), *ops,
+           *state)
+    nbytes = sum(t.numel() * t.element_size() for t in ins + tuple(out_k))
+    lane_trips = int((out_k[0] - state[0]).sum())
+    L, n_nodes, _, W = ops[0].shape
+    flops = lane_trips * fk.lane_iteration_flops(n_nodes, W)
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    print(f"phase fused kernel {dtype_name(dtype)}: L={L} N={n_nodes} W={W} "
+          f"K={K_BLOCK} lane_trips={lane_trips} converged_in_block={newly} "
+          f"max_abs_err={err:.3e} (bar {tol:g}*max|x|={tol * x_max:.3e}) "
+          f"ms={ms:.5f} plain_ms={plain_ms:.5f} torch_block_ms="
+          f"{block_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}: "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                torch_block_ms=block_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+# ---------------------------------------------------------- main paths
+
+def run_main_path(rt, Timers, fixed_point="legacy", **kw):
     """Model -> analyze_unloaded -> solve_eigen -> analyze_cases (cold),
-    then a warm analyze_cases with the kernel's launch count reset just
+    then a warm analyze_cases with the kernels' launch counts reset just
     before it."""
-    gk = rt.gj_solve
-    model = rt.Model(design, **kw)
+    from raft_tpu_torch.kernels import fused_block as fk
+    from raft_tpu_torch.kernels import gj_solve as gk
+
+    model = rt.Model(flagship(rt), **kw)
     model.analyze_unloaded()
     fns, _ = model.solve_eigen(display=0)
-    model.analyze_cases()
-    gk.launches = 0
+    model.analyze_cases(fixed_point=fixed_point)
+    gk.launches = fk.launches = 0
     with Timers() as tm:
         with tm.time("analyze_cases"):
-            model.analyze_cases()
-    launches = gk.launches
+            model.analyze_cases(fixed_point=fixed_point)
+    launches = dict(gj_solve=gk.launches, fused_block=fk.launches)
     rep = tm.report()
     return model, fns, launches, {k: rep[k]["total_s"] for k in rep}
 
@@ -154,27 +287,23 @@ def rao(model):
     return np.abs(model.Xi) / np.where(mask, np.abs(zeta), np.inf)[:, None]
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
-                 "script needs an NVIDIA card")
-    card = card_line()
-    print(card, flush=True)
+def rao_linf_rel(model, ref):
+    r, r_ref = rao(model), rao(ref)
+    return np.abs(r - r_ref).max() / r_ref.max()
 
-    import raft_tpu_torch as rt
-    from raft_tpu_torch.utils.profiling import Timers
 
-    gk = rt.gj_solve
-    t0 = time.perf_counter()
-    gk.build(verbose=True)
-    print(f"phase build: {gk.SOURCE} -> sm_90a in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+def split(times):
+    return (f"analyze_cases_s={times['analyze_cases']:.4f} host_prep_s="
+            f"{times['case_prep']:.4f} dynamics_s={times['rao_solve']:.4f}")
 
-    k64 = kernel_phase(gk, torch.float64, 1e-12)
-    kernel_phase(gk, torch.float32, 1e-5)
 
-    design = rt.designs.flagship(0.00625, 0.8, 12)
-    model, fns, launches, times = run_main_path(rt, Timers, design)
+def same_report(a, b):
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in a._fields)
+
+
+def legacy_phases(rt, Timers):
+    model, fns, launches, times = run_main_path(rt, Timers)
     rep = model.solve_report
     trips = int(rep.iters.max())
     if model.nw != 128 or model.Xi.shape != (12, 6, 128):
@@ -183,11 +312,11 @@ def main():
         raise AssertionError(f"unhealthy cases: {rep}")
     if not np.isfinite(model.Xi).all():
         raise AssertionError("non-finite response")
-    if launches != trips + LADDER_SOLVES:
+    if launches["gj_solve"] != trips + LADDER_SOLVES:
         raise AssertionError(
             f"gj_solve launches {launches} != {trips} fixed-point trips + "
             f"{LADDER_SOLVES} ladder solves")
-    cpu = rt.Model(rt.designs.flagship(0.00625, 0.8, 12), device="cpu")
+    cpu = rt.Model(flagship(rt), device="cpu")
     cpu.analyze_unloaded()
     cpu.analyze_cases()
     xi_rel = np.abs(model.Xi - cpu.Xi).max() / np.abs(cpu.Xi).max()
@@ -195,30 +324,199 @@ def main():
         raise AssertionError(f"card vs CPU Xi rel {xi_rel} > 1e-8")
     print(f"phase main f64: nw={model.nw} cases={model.Xi.shape[0]} "
           f"eigen_hz={np.round(fns, 5).tolist()} trips={trips} "
-          f"gj_launches={launches} host_prep_s={times['case_prep']:.4f} "
-          f"dynamics_s={times['rao_solve']:.4f} analyze_cases_s="
-          f"{times['analyze_cases']:.4f} xi_rel_vs_cpu={xi_rel:.3e} "
-          f"iters={rep.iters.tolist()}", flush=True)
+          f"gj_launches={launches['gj_solve']} {split(times)} "
+          f"xi_rel_vs_cpu={xi_rel:.3e} iters={rep.iters.tolist()}",
+          flush=True)
 
-    m32, _, launches32, times32 = run_main_path(
-        rt, Timers, rt.designs.flagship(0.00625, 0.8, 12),
-        precision="float32")
-    r64, r32 = rao(model), rao(m32)
-    rao_abs = np.abs(r32 - r64).max()
-    rao_rel = rao_abs / r64.max()
-    if not (m32.solve_report.converged.all() and rao_rel <= 1e-4):
-        raise AssertionError(f"f32 RAO L-inf rel {rao_rel} > 1e-4 or "
+    m32, _, launches32, times32 = run_main_path(rt, Timers,
+                                                precision="float32")
+    rel = rao_linf_rel(m32, model)
+    if not (m32.solve_report.converged.all() and rel <= 1e-4):
+        raise AssertionError(f"f32 RAO L-inf rel {rel} > 1e-4 or "
                              f"unconverged {m32.solve_report}")
-    print(f"phase main f32: rao_linf={rao_abs:.3e} rao_linf_rel="
-          f"{rao_rel:.3e} gj_launches={launches32} host_prep_s="
-          f"{times32['case_prep']:.4f} dynamics_s="
-          f"{times32['rao_solve']:.4f}", flush=True)
+    print(f"phase main f32: rao_linf_rel={rel:.3e} gj_launches="
+          f"{launches32['gj_solve']} {split(times32)}", flush=True)
+    return model, launches
 
-    kernels = [dict(
-        name="gj_solve", route="cuda",
-        source="raft_tpu_torch/csrc/gj_solve.cu",
-        replaces="raft_tpu/pallas_kernels.py:150",
-        launches=launches, **k64)]
+
+def engine_phases(rt, Timers, legacy):
+    from raft_tpu_torch.waterfall import last_dispatch_stats
+
+    wf, _, l_wf, t_wf = run_main_path(rt, Timers, fixed_point="waterfall")
+    st = last_dispatch_stats()
+    if not (np.array_equal(wf.Xi, legacy.Xi)
+            and same_report(wf.solve_report, legacy.solve_report)):
+        raise AssertionError("waterfall is not bit-identical to legacy: "
+                             f"{np.abs(wf.Xi - legacy.Xi).max()}")
+    if l_wf["gj_solve"] != st["blocks"] * st["block_iters"] + LADDER_SOLVES:
+        raise AssertionError(f"waterfall gj launches {l_wf} vs {st}")
+    print(f"phase waterfall f64: bit_identical_to_legacy=True rungs="
+          f"{st['rungs']} blocks={st['blocks']} gj_launches="
+          f"{l_wf['gj_solve']} lane_iters={st['lane_iters_executed']}/"
+          f"{st['lane_iters_monolithic']} {split(t_wf)}", flush=True)
+
+    fu, _, l_fu, t_fu = run_main_path(rt, Timers, fixed_point="fused")
+    st = last_dispatch_stats()
+    for f in ("converged", "iters", "nonfinite", "recovery_tier"):
+        if not np.array_equal(getattr(fu.solve_report, f),
+                              getattr(legacy.solve_report, f)):
+            raise AssertionError(f"fused {f} differs from legacy")
+    np.testing.assert_allclose(fu.Xi, legacy.Xi, rtol=1e-8, atol=1e-12)
+    xi_rel = np.abs(fu.Xi - legacy.Xi).max() / np.abs(legacy.Xi).max()
+    if l_fu["fused_block"] != st["blocks"] or not st["kernel"]:
+        raise AssertionError(f"fused launches {l_fu} vs blocks {st}")
+    if l_fu["gj_solve"] != LADDER_SOLVES:
+        raise AssertionError(f"fused gj launches {l_fu['gj_solve']} != "
+                             f"{LADDER_SOLVES}")
+    print(f"phase fused f64: flags_identical=True xi_rel_vs_legacy="
+          f"{xi_rel:.3e} blocks={st['blocks']} fused_launches="
+          f"{l_fu['fused_block']} gj_launches={l_fu['gj_solve']} "
+          f"{split(t_fu)}", flush=True)
+    return l_wf, l_fu
+
+
+def megabatch_phase(rt, model, args):
+    """64 lanes: the 12 cases repeated, node drag coefficients swept over
+    three decades, per-lane zeta and B_lin scaling, lane 7 NaN."""
+    from raft_tpu_torch.convert import case_args_from_numpy
+    from raft_tpu_torch.model import make_case_dynamics
+    from raft_tpu_torch.serve.buckets import SlotPhysics
+    from raft_tpu_torch.waterfall import (
+        SuspendedWaterfall, _map_nodes, last_dispatch_stats,
+        waterfall_dispatch)
+
+    L = MEGA_LANES
+    reps = -(-L // args[0].shape[0])
+    a = [np.concatenate([np.asarray(x)] * reps)[:L] for x in args]
+    a[0] = a[0] * np.geomspace(0.02, 50.0, L)[:, None]
+    a[4] = a[4] * np.geomspace(1e-3, 1.0, L)[:, None, None, None]
+    a[2][7] = np.nan
+    dev = case_args_from_numpy(a, "cuda", torch.float64)
+    cdf = torch.as_tensor(np.geomspace(0.2, 400.0, L), device="cuda")
+    nodes = _map_nodes(lambda t: t.expand((L,) + t.shape).contiguous(),
+                       model.nodes.to("cuda", torch.float64))
+    for f in ("Cd_q", "Cd_p1", "Cd_p2", "Cd_End"):
+        setattr(nodes, f, getattr(nodes, f) * cdf[:, None])
+    physics = SlotPhysics.from_model(model)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    legacy_fn = make_case_dynamics(model.w, model.k, model.depth,
+                                   model.rho_water, model.g, model.XiStart,
+                                   model.nIter, torch.float64, "cuda")
+    ref, t_leg = timed(lambda: legacy_fn(nodes, *dev))
+    wf, t_wf = timed(lambda: waterfall_dispatch(physics, nodes, dev))
+    st = last_dispatch_stats()
+    if not min(st["rungs"]) < max(st["rungs"]):
+        raise AssertionError(f"rungs did not descend: {st['rungs']}")
+    for x, y in zip(wf[:2], ref[:2]):
+        if not torch.equal(x, y):
+            raise AssertionError("megabatch waterfall != legacy batch")
+    if not all(torch.equal(x, y) for x, y in zip(wf[2], ref[2])):
+        raise AssertionError("megabatch waterfall report != legacy batch")
+    rep = ref[2]
+    if not (rep.nonfinite[7] and not rep.converged[7]):
+        raise AssertionError("NaN lane 7 not quarantined")
+    fu, t_fu = timed(lambda: waterfall_dispatch(physics, nodes, dev,
+                                                kernel=True))
+    st_fu = last_dispatch_stats()
+    for f in ("converged", "iters", "nonfinite", "recovery_tier"):
+        if not torch.equal(getattr(fu[2], f), getattr(rep, f)):
+            raise AssertionError(f"megabatch fused {f} != legacy batch")
+    for x, y in zip(fu[:2], ref[:2]):
+        torch.testing.assert_close(x, y, rtol=1e-8, atol=1e-12)
+    polls = []
+
+    def yield_once():
+        polls.append(1)
+        return len(polls) == 1
+
+    sus = waterfall_dispatch(physics, nodes, dev, should_yield=yield_once)
+    if not isinstance(sus, SuspendedWaterfall):
+        raise AssertionError("the dispatch did not suspend")
+    survivors = sus.survivors
+    res = waterfall_dispatch(None, None, None, resume=sus)
+    if not (all(torch.equal(x, y) for x, y in zip(res[:2], wf[:2]))
+            and all(torch.equal(x, y) for x, y in zip(res[2], wf[2]))):
+        raise AssertionError("suspended + resumed != uninterrupted")
+    it = rep.iters.cpu().numpy()
+    print(f"phase megabatch: lanes={L} iters {it.min()}..{it.max()} "
+          f"converged={int(rep.converged.sum())} rungs={st['rungs']} "
+          f"lane_iters={st['lane_iters_executed']}/"
+          f"{st['lane_iters_monolithic']} waterfall_bit_identical=True "
+          f"fused_flags_identical=True fused_blocks={st_fu['blocks']} "
+          f"suspended_survivors={survivors} resumed_bit_identical=True "
+          f"legacy_s={t_leg:.4f} waterfall_s={t_wf:.4f} fused_s="
+          f"{t_fu:.4f}", flush=True)
+
+
+def mixed_precision_phase(rt, Timers, legacy):
+    mp, _, _, times = run_main_path(rt, Timers, fixed_point="waterfall",
+                                    precision="float32",
+                                    mixed_precision=True)
+    cpu = rt.Model(flagship(rt), device="cpu", precision="float32",
+                   mixed_precision=True)
+    cpu.analyze_unloaded()
+    cpu.analyze_cases(fixed_point="waterfall")
+    vs_cpu = rao_linf_rel(mp, cpu)
+    vs_f64 = rao_linf_rel(mp, legacy)
+    if not (np.isfinite(mp.Xi).all() and vs_cpu <= 1e-4
+            and vs_f64 <= MP_POLICY_LINF):
+        raise AssertionError(f"mixed precision: RAO L-inf rel {vs_cpu} vs "
+                             f"the CPU, {vs_f64} vs float64")
+    print(f"phase mixed f32: rao_linf_rel_vs_cpu_same_policy={vs_cpu:.3e} "
+          f"rao_linf_rel_vs_f64={vs_f64:.3e} iters="
+          f"{mp.solve_report.iters.tolist()} {split(times)}", flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
+                 "script needs an NVIDIA card")
+    card = card_line()
+    print(card, flush=True)
+
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.kernels import fused_block as fk
+    from raft_tpu_torch.kernels import gj_solve as gk
+    from raft_tpu_torch.utils.profiling import Timers
+
+    build_phase((gk, fk))
+    g64 = gj_kernel_phase(gk, torch.float64, 1e-12)
+    gj_kernel_phase(gk, torch.float32, 1e-5)
+
+    prep = rt.Model(flagship(rt))
+    prep.analyze_unloaded()
+    args, _ = prep.prepare_case_inputs(verbose=False)
+    f64 = fused_kernel_phase(fk, prep, args, torch.float64, 1e-12)
+    fused_kernel_phase(fk, prep, args, torch.float32, 1e-5)
+
+    legacy, l_leg = legacy_phases(rt, Timers)
+    l_wf, l_fu = engine_phases(rt, Timers, legacy)
+    megabatch_phase(rt, legacy, args)
+    mixed_precision_phase(rt, Timers, legacy)
+
+    kernels = [
+        dict(name="gj_solve", route="cuda",
+             source="raft_tpu_torch/csrc/gj_solve.cu",
+             replaces="raft_tpu/pallas_kernels.py:150",
+             launches=l_leg["gj_solve"],
+             launches_waterfall=l_wf["gj_solve"],
+             launches_fused=l_fu["gj_solve"], **g64),
+        dict(name="fused_block", route="cuda",
+             source="raft_tpu_torch/csrc/fused_block.cu",
+             replaces="raft_tpu/pallas_kernels.py:428",
+             launches=l_fu["fused_block"], **f64),
+    ]
+    for k in kernels:
+        if not all(math.isfinite(k[key]) for key in
+                   ("max_abs_err", "ms", "plain_ms", "bound_ms")):
+            raise AssertionError(f"non-finite kernel numbers: {k}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

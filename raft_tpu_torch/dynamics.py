@@ -5,11 +5,15 @@
   [[Zr, -Zi], [Zi, Zr]] through Gauss–Jordan elimination: on the card
   every one of them, the recovery ladder's included, is a launch of the
   CUDA kernel (raft_tpu_torch/kernels/gj_solve.py).
-- The drag-linearization fixed point runs for all cases at once: the
-  JAX ``while_loop`` under ``vmap`` becomes a Python loop over trips of
-  one batched body with a per-case ``done`` mask.  A case that is done
-  (converged, out of iterations, or quarantined) keeps its state through
-  ``torch.where``, exactly as the JAX select keeps a finished lane.
+- The drag-linearization fixed point runs for a batch of lanes (cases)
+  at once, decomposed into phases (:func:`fixed_point_phases`): ``init``,
+  ``cond``, ``body`` and ``finalize``.  :func:`solve_dynamics` composes
+  them into the legacy solve, a Python loop over gated trips
+  (:func:`gated_trip`) of one batched body; the waterfall engine
+  (raft_tpu_torch/waterfall.py) drives the same phases in fixed
+  K-trip blocks.  A lane that is done (converged, out of iterations, or
+  quarantined) keeps its state through ``torch.where``, exactly as the
+  JAX select keeps a finished lane.
 - A non-finite iterate freezes its case at the last finite state and
   sets ``nonfinite`` (the NaN quarantine); the final re-solve goes
   through the escalating recovery ladder, which fills the
@@ -26,6 +30,7 @@ from raft_tpu_torch.health import (
 )
 from raft_tpu_torch.hydro import linearized_drag
 from raft_tpu_torch.kernels.gj_solve import gj_solve
+from raft_tpu_torch.precision import mp_round
 
 
 def _eliminate(M):
@@ -162,34 +167,74 @@ def solve_complex_6x6_ladder(Zr, Zi, Fr, Fi, refine=1, resid_tol=None,
     return x[..., :6], x[..., 6:], residual, cond, tier
 
 
-def assemble_impedance(w, M, B, C):
+def assemble_impedance(w, M, B, C, mp=False):
     """Z(w) = -w^2 M + i w B + C as (real, imag) parts.
 
     w : [nw]; M, B : [..., nw, 6, 6]; C broadcastable to them.
+    mp : bf16 rounding of the matrix operands (raft_tpu_torch/
+        precision.py); ``False`` is the exact baseline expression.
     """
     w2 = (w * w)[:, None, None]
+    if mp:
+        return -w2 * mp_round(M) + mp_round(C), w[:, None, None] * mp_round(B)
     Zr = -w2 * M + C
     Zi = w[:, None, None] * B
     return Zr, Zi
 
 
-def solve_dynamics(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
-                   F_lin_i, XiStart, nIter=15, tol=0.01, refine=1,
-                   relax=0.8):
-    """Fixed-point dynamics solve for a batch of cases.
+class FixedPointPhases:
+    """The dynamics fixed point of a lane batch decomposed into phases.
 
-    nodes : HydroNodes (working device and dtype)
-    u     : [nc, N, 3, nw] complex wave velocity at the nodes
-    M_lin, B_lin : [nc, nw, 6, 6] frequency-dependent mass/damping
-    C_lin : [nc, 6, 6] total stiffness
-    F_lin_r/i : [nc, nw, 6] linear excitation force (real/imag parts)
+    ``init`` is the loop state ``(i, XiNext, XiPoint, Xi_lastfinite,
+    done, froze)``, each with a leading lane axis [L]; ``cond(state)`` is
+    the [L] mask of lanes that still iterate; ``body(state)`` is one
+    iteration of every lane; ``finalize(state)`` is the refined re-solve
+    through the recovery ladder and returns ``(Xi_r, Xi_i, report)``.
+    :func:`solve_dynamics` composes them into the legacy solve, and the
+    waterfall engine drives the same closures in fixed K-trip blocks.
+    Every operation is lane-local, so a lane's bits do not depend on the
+    other lanes of its batch.
+    """
+
+    def __init__(self, init, cond, body, finalize):
+        self.init = init
+        self.cond = cond
+        self.body = body
+        self.finalize = finalize
+
+
+def _keep(new, old, active):
+    """``new`` where the lane is active, else ``old`` (leading lane axis)."""
+    return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)),
+                       new, old)
+
+
+def gated_trip(ph, state):
+    """One trip of the fixed point: the body for the lanes that still
+    iterate, the unchanged state for the others (the JAX
+    ``where(cond, body(s), s)``)."""
+    active = ph.cond(state)
+    return tuple(_keep(n, o, active) for n, o in zip(ph.body(state), state))
+
+
+def fixed_point_phases(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
+                       F_lin_i, XiStart, nIter=15, tol=0.01, refine=1,
+                       relax=0.8, mp=False):
+    """Build the fixed-point phases of a lane batch (see
+    :class:`FixedPointPhases`).
+
+    nodes : HydroNodes (working device and dtype), shared [N, ...] or
+        per-lane [L, N, ...]
+    u     : [L, N, 3, nw] complex wave velocity at the nodes
+    M_lin, B_lin : [L, nw, 6, 6] frequency-dependent mass/damping
+    C_lin : [L, 6, 6] total stiffness
+    F_lin_r/i : [L, nw, 6] linear excitation force (real/imag parts)
     XiStart : initial amplitude guess
     relax : weight of the NEW iterate in the under-relaxed update
         (reference: Xi <- 0.2*old + 0.8*new)
-
-    Returns (Xi_r, Xi_i, report): [nc, 6, nw] response amplitude parts and
-    a SolveReport with [nc] fields.  The fixed point takes
-    ``report.iters.max()`` trips of the batched body.
+    mp : mixed-precision assembly inside the fixed point; the final
+        re-solve then shadows it with a full-precision assembly that
+        degraded frequency bins fall back to (raft_tpu_torch/precision.py)
     """
     nc, nw = M_lin.shape[0], w.shape[0]
     cdtype = u.dtype
@@ -200,35 +245,29 @@ def solve_dynamics(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
     F_lin = torch.complex(F_lin_r, F_lin_i).to(cdtype)
     C = C_lin[:, None]
 
-    def assemble(XiL):
-        B_drag, F_drag = linearized_drag(nodes, XiL, u, w, dw, rho)
-        Zr, Zi = assemble_impedance(w, M_lin, B_lin + B_drag[:, None], C)
+    def assemble(XiL, full_precision=False):
+        use_mp = mp and not full_precision
+        B_drag, F_drag = linearized_drag(nodes, XiL, u, w, dw, rho,
+                                         mp=use_mp)
+        Zr, Zi = assemble_impedance(w, M_lin, B_lin + B_drag[:, None], C,
+                                    mp=use_mp)
         return Zr, Zi, F_drag + F_lin
 
-    def step(XiL):
-        Zr, Zi, F = assemble(XiL)
-        xr, xi = solve_complex_6x6(Zr, Zi, F.real, F.imag, refine=0)
-        return torch.complex(xr, xi).transpose(-1, -2)          # [nc, 6, nw]
+    def cond(state):
+        i, _, _, _, done, _ = state
+        return (i < nIter + 1) & ~done
 
-    dev = u.device
-    i = torch.zeros(nc, dtype=torch.int64, device=dev)
-    XiLast = torch.full((nc, 6, nw), XiStart, dtype=cdtype, device=dev)
-    XiPoint = XiLast
-    Xi = torch.zeros((nc, 6, nw), dtype=cdtype, device=dev)
-    done = torch.zeros(nc, dtype=torch.bool, device=dev)
-    froze = torch.zeros(nc, dtype=torch.bool, device=dev)
-
-    def keep(new, old, active):
-        return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)),
-                           new, old)
-
-    while True:
-        active = (i < nIter + 1) & ~done
-        if not bool(active.any()):
-            break
+    def body(state):
+        i, XiLast, XiPoint, Xi, done, froze = state
         # no refinement inside the loop: the fixed point only needs the
         # solution to well within its 1% convergence tolerance
-        Xn = step(XiLast)
+        Zr, Zi, F = assemble(XiLast)
+        xr, xi = solve_complex_6x6(Zr, Zi, F.real, F.imag, refine=0)
+        # contiguous, so the loop state keeps one layout whichever block
+        # (torch or the fused kernel) produced it
+        Xn = torch.complex(xr, xi).transpose(-1, -2).contiguous()  # [L,6,nw]
+        # NaN quarantine: a non-finite iterate freezes its lane at the last
+        # finite state and raises the flag
         finite = torch.isfinite(Xn).all(dim=-1).all(dim=-1)
         tolCheck = torch.abs(Xn - XiLast) / (torch.abs(Xn) + tol)
         conv = (tolCheck < tol).all(dim=-1).all(dim=-1)  # NaN compares False
@@ -237,30 +276,80 @@ def solve_dynamics(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
                              w_old * XiLast + relax * Xn)
         # XiPoint records the linearization point of the last solve, so the
         # refined re-solve below reproduces exactly that solve
-        i = keep(i + 1, i, active)
-        XiPoint = keep(XiLast, XiPoint, active)
-        XiLast = keep(XiNext, XiLast, active)
-        Xi = keep(torch.where(finite[:, None, None], Xn, Xi), Xi, active)
-        done = keep(stop, done, active)
-        froze = keep(froze | ~finite, froze, active)
+        return (i + 1, XiNext, XiLast,
+                torch.where(finite[:, None, None], Xn, Xi),
+                stop, froze | ~finite)
 
-    converged = done & ~froze
-    # one re-solve at the final linearization point through the recovery
-    # ladder gives the returned amplitudes and the health record
-    Zr, Zi, F = assemble(XiPoint)
-    xr_c, xi_c, resid, cond_est, tier = solve_complex_6x6_ladder(
-        Zr, Zi, F.real, F.imag, refine=refine)
-    Xi_cand = torch.complex(xr_c, xi_c).transpose(-1, -2)       # [nc, 6, nw]
-    cand_ok = torch.isfinite(Xi_cand).all(dim=-1).all(dim=-1)
-    # if even the ladder's last tier is non-finite, fall back to the loop's
-    # last finite iterate (zeros if none existed)
-    Xi_out = torch.where(cand_ok[:, None, None], Xi_cand, Xi)
-    report = SolveReport(
-        converged=converged,
-        iters=i,
-        nonfinite=froze | ~cand_ok,
-        recovery_tier=torch.amax(tier, dim=-1),
-        residual=torch.amax(resid, dim=-1),
-        cond=torch.amax(cond_est, dim=-1),
-    )
-    return Xi_out.real, Xi_out.imag, report
+    dev = u.device
+    XiLast = torch.full((nc, 6, nw), XiStart, dtype=cdtype, device=dev)
+    init = (torch.zeros(nc, dtype=torch.int64, device=dev), XiLast, XiLast,
+            torch.zeros((nc, 6, nw), dtype=cdtype, device=dev),
+            torch.zeros(nc, dtype=torch.bool, device=dev),
+            torch.zeros(nc, dtype=torch.bool, device=dev))
+
+    def finalize(state):
+        i, _, XiPoint, Xi, done, froze = state
+        converged = done & ~froze
+        # one re-solve at the final linearization point through the
+        # recovery ladder gives the returned amplitudes and the health
+        # record
+        Zr, Zi, F = assemble(XiPoint)
+        xr_c, xi_c, resid, cond_est, tier = solve_complex_6x6_ladder(
+            Zr, Zi, F.real, F.imag, refine=refine)
+        if mp:
+            # fall back to full precision: any frequency bin the ladder
+            # escalated past baseline, or whose condition estimate exceeds
+            # the float32 ladder threshold, takes the answer of a
+            # full-precision assembly and ladder at the same point
+            Zr_f, Zi_f, F_f = assemble(XiPoint, full_precision=True)
+            xr_f, xi_f, resid_f, cond_f, tier_f = solve_complex_6x6_ladder(
+                Zr_f, Zi_f, F_f.real, F_f.imag, refine=refine)
+            eps32 = torch.finfo(torch.float32).eps
+            degraded = (tier != TIER_BASELINE) | (cond_est > 0.02 / eps32)
+            xr_c = torch.where(degraded[..., None], xr_f, xr_c)
+            xi_c = torch.where(degraded[..., None], xi_f, xi_c)
+            resid = torch.where(degraded, resid_f, resid)
+            cond_est = torch.where(degraded, cond_f, cond_est)
+            tier = torch.where(degraded, tier_f, tier)
+        Xi_cand = torch.complex(xr_c, xi_c).transpose(-1, -2)   # [L, 6, nw]
+        cand_ok = torch.isfinite(Xi_cand).all(dim=-1).all(dim=-1)
+        # if even the ladder's last tier is non-finite, fall back to the
+        # loop's last finite iterate (zeros if none existed)
+        Xi_out = torch.where(cand_ok[:, None, None], Xi_cand, Xi)
+        report = SolveReport(
+            converged=converged,
+            iters=i,
+            nonfinite=froze | ~cand_ok,
+            recovery_tier=torch.amax(tier, dim=-1),
+            residual=torch.amax(resid, dim=-1),
+            cond=torch.amax(cond_est, dim=-1),
+        )
+        return Xi_out.real, Xi_out.imag, report
+
+    return FixedPointPhases(init, cond, body, finalize)
+
+
+def solve_dynamics(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
+                   F_lin_i, XiStart, nIter=15, tol=0.01, refine=1,
+                   relax=0.8, mp=False):
+    """Fixed-point dynamics solve for a batch of cases: the phases of
+    :func:`fixed_point_phases` (same operands) composed into gated trips
+    until no lane iterates, then ``finalize``.
+
+    Returns (Xi_r, Xi_i, report): [nc, 6, nw] response amplitude parts and
+    a SolveReport with [nc] fields.  The fixed point takes
+    ``report.iters.max()`` trips of the batched body.
+    """
+    return solve_phases(fixed_point_phases(
+        nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r, F_lin_i,
+        XiStart, nIter=nIter, tol=tol, refine=refine, relax=relax, mp=mp))
+
+
+def solve_phases(ph):
+    """The legacy composition of :class:`FixedPointPhases`: gated trips
+    while any lane iterates (one host read of the mask per trip), then
+    ``finalize``."""
+    state = ph.init
+    while bool(ph.cond(state).any()):
+        state = gated_trip(ph, state)
+    return ph.finalize(state)

@@ -7,10 +7,11 @@ on every augmented system of ``M [B, n, m]`` and returns the eliminated
 every step, ``[B, n]``.  It replaces the TPU kernel
 ``raft_tpu/pallas_kernels.py:128-179`` (``gauss_solve_pallas``).
 
-- A tensor on the card goes to the kernel in ``csrc/gj_solve.cu``, built
-  with ``nvcc`` for ``sm_90a`` at first use into ``build/raft_tpu_torch/``
-  and loaded with ``ctypes``.  A failed build or launch raises; there is
-  no fallback.
+- A tensor on the card goes to the kernel in ``csrc/gj_solve.cu`` (its
+  elimination is ``csrc/gj_elim.cuh``), built with ``nvcc`` for
+  ``sm_90a`` at first use into ``build/raft_tpu_torch/`` and loaded
+  with ``ctypes`` (kernels/_build.py).  A failed build or launch raises;
+  there is no fallback.
 - A tensor on the CPU goes to :func:`gj_solve_reference`, the plain
   version of the same steps (the mirror of ``raft_tpu.dynamics._gj_step``).
 
@@ -18,18 +19,15 @@ every step, ``[B, n]``.  It replaces the TPU kernel
 """
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "gj_solve.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "raft_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+from raft_tpu_torch.kernels import _build
+from raft_tpu_torch.kernels._build import BUILD_DIR, nvcc
+
+SOURCE = os.path.join(_build.CSRC, "gj_solve.cu")
+HEADERS = (os.path.join(_build.CSRC, "gj_elim.cuh"),)
 MAX_N = 16
 MAX_M = 32
 
@@ -37,42 +35,21 @@ launches = 0
 _lib = None
 
 
-def nvcc():
-    """Path of the CUDA compiler: ``nvcc`` on PATH, else the toolkit's
-    default location."""
-    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+def start_build(verbose=False):
+    """Start compiling ``csrc/gj_solve.cu`` (see :func:`build`)."""
+    return _build.start(SOURCE, HEADERS, BUILD_DIR, nvcc(), verbose)
 
 
-def build(verbose=False):
-    """Compile ``csrc/gj_solve.cu`` (once per source content) and load it.
-    Returns the ``ctypes`` library; raises ``RuntimeError`` when the build
-    fails.  ``verbose`` adds ``-Xptxas -v`` and prints the compiler's
-    report of registers and spills."""
+def build(verbose=False, job=None):
+    """Compile ``csrc/gj_solve.cu`` (once per content of it and of
+    ``csrc/gj_elim.cuh``) and load it; ``job`` is a build already started
+    by :func:`start_build`.  Returns the ``ctypes`` library; raises
+    ``RuntimeError`` when the build fails.  ``verbose`` adds ``-Xptxas -v``
+    and prints the compiler's report of registers and spills."""
     global _lib
-    if _lib is not None and not verbose:
+    if _lib is not None and not verbose and job is None:
         return _lib
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR,
-                            f"libgj_solve_{digest.hexdigest()[:12]}.so")
-    if verbose or not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-               "-o", tmp, SOURCE]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=600)
-        except OSError as e:
-            raise RuntimeError(f"cannot run {cmd[0]}: {e}") from e
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-                f"{proc.stderr}")
-        if verbose:
-            print(proc.stderr, end="")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(lib_path)
+    lib = _build.finish(job or start_build(verbose), verbose)
     for name in ("gj_solve_f64", "gj_solve_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -2,8 +2,11 @@
 
 The same surface and ``results`` keys as the JAX package's Model for the
 main path: ``Model(design)``, ``analyze_unloaded``, ``prepare_case_inputs``,
-``analyze_cases`` (its default, legacy fixed-point dispatch),
-``solve_eigen``, ``calc_outputs`` and ``run_raft``.
+``analyze_cases`` (with the legacy, waterfall or fused fixed-point
+engine), ``solve_eigen``, ``calc_outputs`` and ``run_raft``.  The JAX
+package's mode variables become explicit arguments:
+``analyze_cases(fixed_point=..., block_iters=...)`` and
+``Model(..., mixed_precision=...)``.
 
 Work split:
  - host, float64 on the CPU: geometry packing, statics, the per-case
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.convert import case_args_from_numpy
-from raft_tpu_torch.dynamics import solve_dynamics
+from raft_tpu_torch.dynamics import fixed_point_phases, solve_phases
 from raft_tpu_torch.fatigue import dirlik_del
 from raft_tpu_torch.geometry import pack_nodes, process_members
 from raft_tpu_torch.health import log_report, report_dict, report_to_numpy
@@ -45,6 +48,7 @@ from raft_tpu_torch.utils.placement import (
     resolve_dtype,
 )
 from raft_tpu_torch.utils.profiling import logger, timer
+from raft_tpu_torch.waterfall import check_mode, waterfall_case_dispatch
 from raft_tpu_torch.waves import wave_kinematics, wave_number
 
 _RAD2DEG = 57.29577951308232
@@ -65,14 +69,19 @@ def _np_dtype(dtype):
     return np.float32 if dtype == torch.float32 else np.float64
 
 
-def make_case_dynamics(w, k, depth, rho, g, XiStart, nIter, dtype, device,
-                       relax=0.8):
-    """Build the batched device function
-    ``fn(nodes, zeta[nc,nw], beta[nc], C_lin[nc,6,6], M_lin[nc,nw,6,6],
-    B_lin[nc,nw,6,6], F_add_r[nc,nw,6], F_add_i[nc,nw,6])
-    -> (Xi_r[nc,6,nw], Xi_i[nc,6,nw], SolveReport with [nc] fields)``
-    with every tensor on ``device`` in ``dtype`` (the JAX package's
-    ``one_case`` under ``vmap``)."""
+def make_case_phases(w, k, depth, rho, g, XiStart, nIter, dtype, device,
+                     relax=0.8, mp=False):
+    """The case dynamics split at the fixed-point phase boundaries, over a
+    lane batch on ``device`` in ``dtype``:
+
+    ``prelude(nodes, zeta[L,nw], beta[L], F_add_r[L,nw,6], F_add_i)
+    -> (u[L,N,3,nw], Fr[L,nw,6], Fi)``
+        wave kinematics and Froude–Krylov excitation (loop-invariant);
+    ``phases(nodes, u, C_lin[L,6,6], M_lin[L,nw,6,6], B_lin, Fr, Fi)``
+        the :class:`raft_tpu_torch.dynamics.FixedPointPhases` over them.
+
+    ``nodes`` is shared by the lanes ([N, ...]) or per lane
+    ([L, N, ...]).  ``mp`` selects the mixed-precision policy."""
     w = torch.as_tensor(np.asarray(w).astype(_np_dtype(dtype)),
                         device=device)
     k = torch.as_tensor(np.asarray(k).astype(_np_dtype(dtype)),
@@ -82,14 +91,36 @@ def make_case_dynamics(w, k, depth, rho, g, XiStart, nIter, dtype, device,
     nIter, XiStart = int(nIter), float(XiStart)
     cdtype = complex_dtype(dtype)
 
-    def cases(nodes, zeta, beta, C_lin, M_lin, B_lin, F_add_r, F_add_i):
+    def prelude(nodes, zeta, beta, F_add_r, F_add_i):
         u, ud, pD = wave_kinematics(zeta.to(cdtype), beta, w, k, depth,
-                                    nodes.r, rho=rho, g=g)
-        F_iner = excitation_froude_krylov(nodes, u, ud, pD, rho)
-        Fr = F_iner.real + F_add_r
-        Fi = F_iner.imag + F_add_i
-        return solve_dynamics(nodes, u, w, dw, rho, M_lin, B_lin, C_lin,
-                              Fr, Fi, XiStart, nIter=nIter, relax=relax)
+                                    nodes.r, rho=rho, g=g,
+                                    per_case_r=nodes.r.dim() == 3)
+        F_iner = excitation_froude_krylov(nodes, u, ud, pD, rho, mp=mp)
+        return u, F_iner.real + F_add_r, F_iner.imag + F_add_i
+
+    def phases(nodes, u, C_lin, M_lin, B_lin, Fr, Fi):
+        return fixed_point_phases(nodes, u, w, dw, rho, M_lin, B_lin, C_lin,
+                                  Fr, Fi, XiStart, nIter=nIter, relax=relax,
+                                  mp=mp)
+
+    return prelude, phases
+
+
+def make_case_dynamics(w, k, depth, rho, g, XiStart, nIter, dtype, device,
+                       relax=0.8, mp=False):
+    """Build the batched device function
+    ``fn(nodes, zeta[nc,nw], beta[nc], C_lin[nc,6,6], M_lin[nc,nw,6,6],
+    B_lin[nc,nw,6,6], F_add_r[nc,nw,6], F_add_i[nc,nw,6])
+    -> (Xi_r[nc,6,nw], Xi_i[nc,6,nw], SolveReport with [nc] fields)``
+    with every tensor on ``device`` in ``dtype`` (the JAX package's
+    ``one_case`` under ``vmap``): the phases of :func:`make_case_phases`
+    run as the legacy solve."""
+    prelude, phases = make_case_phases(w, k, depth, rho, g, XiStart, nIter,
+                                       dtype, device, relax=relax, mp=mp)
+
+    def cases(nodes, zeta, beta, C_lin, M_lin, B_lin, F_add_r, F_add_i):
+        u, Fr, Fi = prelude(nodes, zeta, beta, F_add_r, F_add_i)
+        return solve_phases(phases(nodes, u, C_lin, M_lin, B_lin, Fr, Fi))
 
     return cases
 
@@ -107,9 +138,13 @@ class Model:
         Device of the case dynamics; ``cuda`` by default, and then a
         machine without CUDA raises.  Host stages always run float64 on
         the CPU.
+    mixed_precision : bool
+        bf16 operands with float32 accumulation in the fixed point's
+        assembly (raft_tpu_torch/precision.py); off by default.
     """
 
-    def __init__(self, design, precision=None, device=None, slots=None):
+    def __init__(self, design, precision=None, device=None, slots=None,
+                 mixed_precision=False):
         if slots is not None:
             raise _not_ported("serving buckets (slots=)", 12)
         if not isinstance(design, dict):
@@ -159,6 +194,7 @@ class Model:
         self.dtype = resolve_dtype(precision)
         self.precision = "float32" if self.dtype == torch.float32 \
             else "float64"
+        self.mixed_precision = bool(mixed_precision)
 
         self.statics = None
         self._ICG_turbine = None
@@ -296,6 +332,7 @@ class Model:
         cases = make_case_dynamics(
             self.w, self.k, self.depth, self.rho_water, self.g,
             self.XiStart, self.nIter, self.dtype, self.device,
+            mp=self.mixed_precision,
         )
         nodes = self.nodes.to(self.device, self.dtype)
         return lambda *a: cases(nodes, *a)
@@ -358,18 +395,23 @@ class Model:
         return args, aux
 
     def analyze_cases(self, display=0, runPyHAMS=False, meshDir=None,
-                      solver=None, fixed_point="legacy"):
+                      solver=None, fixed_point="legacy", block_iters=None):
         """Run all load cases: per-case statics (mooring equilibrium), the
         batched dynamics solve on the Model's device, and the response
         metrics (reference raft/raft_model.py:149-309).
 
-        Only the legacy fixed-point dispatch is ported: the waterfall and
-        fused engines (``fixed_point=``), the potential-flow solve
-        (``runPyHAMS``/``meshDir``) and a delegated ``solver`` raise
-        ``NotImplementedError``.
+        fixed_point : the fixed-point engine (raft_tpu_torch/waterfall.py)
+            — ``legacy``, the batched loop; ``waterfall``, K-trip blocks
+            with compaction of the survivors, bit-identical to legacy;
+            ``fused``, the same blocks through the fused CUDA kernel,
+            equal to round-off.  ``fused`` with mixed precision raises
+            ``ValueError``.
+        block_iters : trips per waterfall block (default 4).
+
+        The potential-flow solve (``runPyHAMS``/``meshDir``) and a
+        delegated ``solver`` raise ``NotImplementedError``.
         """
-        if fixed_point != "legacy":
-            raise _not_ported(f"the {fixed_point!r} fixed-point engine", 7)
+        check_mode(fixed_point, self.mixed_precision)
         if runPyHAMS or meshDir:
             raise _not_ported("the potential-flow solve (runPyHAMS)", 9)
         if solver is not None:
@@ -385,11 +427,16 @@ class Model:
         nLines = T_moor.shape[-1] // 2
 
         # ---- the batched device solve ----
-        if self._pipeline is None:
+        if fixed_point == "legacy" and self._pipeline is None:
             self._pipeline = self.case_pipeline_fn()
         with timer("rao_solve"):
-            dev_args = case_args_from_numpy(args, self.device, self.dtype)
-            xr, xi, report = self._pipeline(*dev_args)
+            if fixed_point == "legacy":
+                xr, xi, report = self._pipeline(*case_args_from_numpy(
+                    args, self.device, self.dtype))
+            else:
+                xr, xi, report = waterfall_case_dispatch(
+                    self, args, kernel=fixed_point == "fused",
+                    block=block_iters)
             Xi = (xr.to(HOST, HOST_DTYPE).numpy()
                   + 1j * xi.to(HOST, HOST_DTYPE).numpy())   # [case,6,nw]
             report = report_to_numpy(report)

@@ -6,7 +6,9 @@
 - Host stages (statics, the mooring Newton, the response metrics) run
   on the CPU in float64, as in the JAX package.
 - The working dtype of the dynamics defaults to float64;
-  ``precision="float32"`` is accepted too.  Float32 products on the card
+  ``precision="float32"`` is accepted too.  ``precision`` names the
+  working dtype only: mixed precision is ``Model(...,
+  mixed_precision=True)``.  Float32 products on the card
   run in full float32: TF32 is switched off whenever the card is chosen
   (the JAX package pins ``jax.default_matmul_precision("highest")`` for
   the same reason).
@@ -41,12 +43,10 @@ def resolve_device(device=None):
 def resolve_dtype(precision=None):
     """Working dtype of the case dynamics: float64 unless
     ``precision="float32"``."""
-    if precision == "mixed":
-        raise NotImplementedError(
-            "mixed precision is not ported yet (ROADMAP.md, queue 1 step 7)")
     if precision not in _PRECISIONS:
         raise ValueError(
-            f"precision must be 'float64' or 'float32', got {precision!r}")
+            f"precision must be 'float64' or 'float32', got {precision!r} "
+            "(mixed precision is Model(..., mixed_precision=True))")
     return _PRECISIONS[precision]
 
 

@@ -47,14 +47,16 @@ def depth_ratios(k, z, h):
     return s, c, cc
 
 
-def wave_kinematics(zeta0, beta, w, k, h, r, rho=1025.0, g=_G):
+def wave_kinematics(zeta0, beta, w, k, h, r, rho=1025.0, g=_G,
+                    per_case_r=False):
     """Complex wave kinematics amplitude spectra at point(s) ``r``.
 
     zeta0 : [*C, nw] complex wave elevation amplitudes at the origin
     beta  : [*C] wave headings [rad] (a 0-d tensor for one case)
     w, k  : [nw] frequencies / wave numbers (real, the working dtype)
     h     : depth
-    r     : [*R, 3] node positions
+    r     : [*R, 3] node positions shared by every case, or, with
+            ``per_case_r``, [*C, *R, 3]: each case its own nodes
 
     Returns u, ud : [*C, *R, 3, nw] velocity / acceleration amplitudes and
     pDyn : [*C, *R, nw] dynamic pressure amplitudes, in ``zeta0``'s
@@ -62,7 +64,7 @@ def wave_kinematics(zeta0, beta, w, k, h, r, rho=1025.0, g=_G):
     """
     real = w.dtype
     r = r.to(real)
-    nR = r.dim() - 1
+    nR = r.dim() - 1 - (beta.dim() if per_case_r else 0)
     cshape = beta.shape + (1,) * nR
     cb = torch.cos(beta.to(real)).reshape(cshape)
     sb = torch.sin(beta.to(real)).reshape(cshape)

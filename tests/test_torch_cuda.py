@@ -1,16 +1,24 @@
-"""The CUDA Gauss–Jordan kernel on the card (marked ``cuda``; each test
-skips with its reason where there is no card).  This file imports
-neither jax nor raft_tpu, so it runs on a machine with only the port's
-dependencies:
+"""The CUDA kernels on the card — Gauss–Jordan and the fused fixed-point
+block — (marked ``cuda``; each test skips with its reason where there is
+no card).  This file imports neither jax nor raft_tpu, so it runs on a
+machine with only the port's dependencies:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+import raft_tpu_torch
+from raft_tpu_torch.convert import case_args_from_numpy
+from raft_tpu_torch.designs import deep_spar
 from raft_tpu_torch.dynamics import gauss_solve
+from raft_tpu_torch.geometry import HydroNodes
+from raft_tpu_torch.kernels import fused_block as fk
 from raft_tpu_torch.kernels import gj_solve as gk
+from raft_tpu_torch.serve.buckets import SlotPhysics
+from raft_tpu_torch.waterfall import _map_nodes, _phase_pipelines
 
 pytestmark = pytest.mark.cuda
 
@@ -67,3 +75,87 @@ def test_cuda_call_raises_when_kernel_cannot_build(cuda, monkeypatch,
     with pytest.raises(RuntimeError):
         gk.gj_solve(M)
     assert gk.launches == before
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_lane"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-4)],
+                         ids=["f64", "f32"])
+def test_fused_kernel_matches_plain_version(cuda, dtype, tol, shared):
+    """One block (K = 3) of a small spar at 8 lanes, from the state after
+    one torch block, with a lane already done (it must pass through bit
+    for bit) and a NaN lane: i, done and froze equal, amplitudes within
+    tol * max|x|.  The sums run in another order; in float32 that
+    round-off, amplified by the condition of Z(w) near resonance, exceeds
+    1e-5 * max|x| on this coarse grid (as it does between the plain
+    version and raft_tpu's kernel, tests/test_torch_fused_block.py), so
+    the float32 bar is the 1e-4 RAO target."""
+    m = raft_tpu_torch.Model(deep_spar(n_cases=2, nw_settings=(0.05, 0.5)),
+                             device=cuda, precision=str(dtype)[6:])
+    m.analyze_unloaded()
+    args, _ = m.prepare_case_inputs(verbose=False)
+    args = [np.concatenate([np.asarray(a)] * 4) for a in args]
+    args[0] = args[0] * np.geomspace(0.1, 10.0, 8)[:, None]
+    nodes = m.nodes.to(cuda, dtype)
+    if not shared:
+        cdf = torch.as_tensor(np.geomspace(0.3, 30.0, 8), dtype=dtype,
+                              device=cuda)
+        nodes = _map_nodes(lambda a: a.expand((8,) + a.shape).contiguous(),
+                           nodes)
+        for f in ("Cd_q", "Cd_p1", "Cd_p2", "Cd_End"):
+            setattr(nodes, f, getattr(nodes, f) * cdf[:, None])
+    physics = SlotPhysics.from_model(m)
+    prelude_fn, torch_block, _ = _phase_pipelines(physics, 0.8, 3, False,
+                                                  False, str(cuda))
+    dev = case_args_from_numpy(args, cuda, dtype)
+    u, Fr, Fi, state = prelude_fn(nodes, *dev)
+    C, M, B = dev[2:5]
+    state = list(torch_block(nodes, u, C, M, B, Fr, Fi, state))
+    state[4] = state[4].clone()
+    state[4][2] = True
+    C = C.clone()
+    C[5] = float("nan")
+    w = torch.as_tensor(physics.w, dtype=dtype, device=cuda)
+    kw = dict(w=w, dw=float(w[1] - w[0]), rho=physics.rho, relax=0.8,
+              nIter=physics.nIter, K=3)
+    before = fk.launches
+    out = fk.fused_block(nodes, u, C, M, B, Fr, Fi, tuple(state), **kw)
+    ref = fk.fused_block_reference(nodes, u, C, M, B, Fr, Fi, tuple(state),
+                                   **kw)
+    torch.cuda.synchronize()
+    assert fk.launches == before + 1
+    for k in (0, 4, 5):
+        assert torch.equal(out[k], ref[k])
+    for k in (1, 2, 3):
+        assert (out[k] - ref[k]).abs().max() <= tol * ref[k].abs().max()
+    for a, b in zip(out, state):
+        assert torch.equal(a[2], b[2])
+    assert out[5][5] and out[4][5]
+
+
+def test_fused_kernel_refuses_shapes_it_was_not_built_for(cuda):
+    L, N, W = 2, fk.MAX_NODES + 1, 8
+    f = dict(dtype=torch.float64, device=cuda)
+    nodes = HydroNodes(**{
+        name: torch.zeros(shape, **f) for name, shape in (
+            ("r", (N, 3)), ("q", (N, 3)), ("qMat", (N, 3, 3)),
+            ("p1Mat", (N, 3, 3)), ("p2Mat", (N, 3, 3)))},
+        **{name: torch.zeros(N, **f) for name in (
+            "v_side", "v_end", "a_end", "a_q", "a_p1", "a_p2", "a_end_abs",
+            "Ca_p1", "Ca_p2", "Ca_End", "Cd_q", "Cd_p1", "Cd_p2",
+            "Cd_End")},
+        submerged=torch.ones(N, dtype=torch.bool, device=cuda),
+        strip_mask=torch.ones(N, dtype=torch.bool, device=cuda))
+    c = dict(dtype=torch.complex128, device=cuda)
+    state = (torch.zeros(L, dtype=torch.int64, device=cuda),
+             torch.zeros(L, 6, W, **c), torch.zeros(L, 6, W, **c),
+             torch.zeros(L, 6, W, **c),
+             torch.zeros(L, dtype=torch.bool, device=cuda),
+             torch.zeros(L, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError, match="built for"):
+        fk.fused_block(nodes, torch.zeros(L, N, 3, W, **c),
+                       torch.zeros(L, 6, 6, **f), torch.zeros(L, W, 6, 6, **f),
+                       torch.zeros(L, W, 6, 6, **f), torch.zeros(L, W, 6, **f),
+                       torch.zeros(L, W, 6, **f), state,
+                       w=torch.ones(W, **f), dw=1.0, rho=1025.0, relax=0.8,
+                       nIter=15, K=2)

@@ -215,12 +215,26 @@ def test_model_without_device_needs_cuda(monkeypatch):
 
 def test_unported_paths_raise_not_implemented():
     tm = raft_tpu_torch.Model(_design("spar"), device="cpu")
-    for call in (lambda: tm.analyze_cases(fixed_point="waterfall"),
-                 lambda: tm.analyze_cases(runPyHAMS=True),
+    for call in (lambda: tm.analyze_cases(runPyHAMS=True),
+                 lambda: tm.analyze_cases(solver=lambda *a: None),
                  lambda: tm.case_pipeline_fn(checkable=True),
                  lambda: tm.run_bem()):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        raft_tpu_torch.Model(_design("spar"), device="cpu", slots=16)
+
+
+def test_fused_mode_refuses_mixed_precision():
+    """The fused kernel implements full-precision arithmetic only: the
+    fused mode under mixed precision raises instead of quietly running
+    another block."""
+    tm = raft_tpu_torch.Model(_design("spar"), device="cpu",
+                              mixed_precision=True)
+    with pytest.raises(ValueError, match="full-precision"):
+        tm.analyze_cases(fixed_point="fused")
+    with pytest.raises(ValueError, match="fixed_point"):
+        tm.analyze_cases(fixed_point="nonsense")
+    with pytest.raises(ValueError, match="mixed_precision=True"):
         raft_tpu_torch.Model(_design("spar"), device="cpu",
                              precision="mixed")

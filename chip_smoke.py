@@ -34,8 +34,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
 9. a heterogeneous 64-lane megabatch with per-lane node bundles through
    ``waterfall_dispatch``: the rungs descend, the waterfall is
    bit-identical to the legacy batch of the same lanes, the fused mode
-   agrees to round-off, and a dispatch suspended after its first block
-   and resumed is bit-identical to an uninterrupted one;
+   agrees to round-off, a dispatch suspended after its first block and
+   resumed is bit-identical to an uninterrupted one, and the dispatch's
+   ``flops_executed`` is the analytic count;
 10. mixed precision with float32 working dtype in the waterfall mode:
     RAO against the same policy on the CPU (within 1e-4) and against
     the float64 card run (printed; the policy's own error).
@@ -70,7 +71,8 @@ RUNG, K_BLOCK, NAN_LANE = 16, 4, 13
 MEGA_LANES = 64
 # RAO L-inf (relative to the peak) of the mixed-precision policy against
 # float64 on the flagship, measured on the CPU for raft_tpu and the port
-# alike: 4.24e-2 (docs/torch_port.md section 6)
+# alike by tests/torch_mp_policy_linf.py: 4.24e-2 (docs/torch_port.md
+# section 6)
 MP_POLICY_LINF = 5e-2
 
 
@@ -241,14 +243,23 @@ def fused_kernel_phase(fk, model, args, dtype, tol):
     plain_ms = cuda_ms(
         lambda: fk.fused_block_reference(nodes, *ops, state, **kw), 5, 1)
     block_ms = cuda_ms(lambda: torch_block(nodes, *ops, state), 5, 1)
-    ins = (kw["w"], *(getattr(nodes, f) for f in fk._NODE_FIELDS), *ops,
-           *state)
-    nbytes = sum(t.numel() * t.element_size() for t in ins + tuple(out_k))
-    lane_trips = int((out_k[0] - state[0]).sum())
+    # the work the function needs: drag acts on the submerged nodes only,
+    # so of u and the node arrays only their rows count (the kernel skips
+    # the others); the submerged mask, the other operands and the state
+    # are read, and the state written, once
+    size = lambda t: t.numel() * t.element_size()  # noqa: E731
     L, n_nodes, _, W = ops[0].shape
-    flops = lane_trips * fk.lane_iteration_flops(n_nodes, W)
+    n_sub = int(nodes.submerged.sum())
+    per_node = (ops[0], *(getattr(nodes, f) for f in fk._NODE_FIELDS
+                          if f != "submerged"))
+    once = (kw["w"], nodes.submerged, *ops[1:], *state, *out_k)
+    nbytes = (n_sub / n_nodes * sum(size(t) for t in per_node)
+              + sum(size(t) for t in once))
+    lane_trips = int((out_k[0] - state[0]).sum())
+    flops = lane_trips * fk.lane_iteration_flops(n_sub, W)
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    print(f"phase fused kernel {dtype_name(dtype)}: L={L} N={n_nodes} W={W} "
+    print(f"phase fused kernel {dtype_name(dtype)}: L={L} N={n_nodes} "
+          f"submerged={n_sub} W={W} "
           f"K={K_BLOCK} lane_trips={lane_trips} converged_in_block={newly} "
           f"max_abs_err={err:.3e} (bar {tol:g}*max|x|={tol * x_max:.3e}) "
           f"ms={ms:.5f} plain_ms={plain_ms:.5f} torch_block_ms="
@@ -379,11 +390,12 @@ def megabatch_phase(rt, model, args):
     """64 lanes: the 12 cases repeated, node drag coefficients swept over
     three decades, per-lane zeta and B_lin scaling, lane 7 NaN."""
     from raft_tpu_torch.convert import case_args_from_numpy
+    from raft_tpu_torch.kernels.fused_block import lane_iteration_flops
     from raft_tpu_torch.model import make_case_dynamics
     from raft_tpu_torch.serve.buckets import SlotPhysics
     from raft_tpu_torch.waterfall import (
-        SuspendedWaterfall, _map_nodes, last_dispatch_stats,
-        waterfall_dispatch)
+        _GJ_FLOPS, _LADDER_EXTRA_SOLVES, SuspendedWaterfall, _map_nodes,
+        last_dispatch_stats, waterfall_dispatch)
 
     L = MEGA_LANES
     reps = -(-L // args[0].shape[0])
@@ -414,6 +426,15 @@ def megabatch_phase(rt, model, args):
     st = last_dispatch_stats()
     if not min(st["rungs"]) < max(st["rungs"]):
         raise AssertionError(f"rungs did not descend: {st['rungs']}")
+    # every lane has the flagship's submerged nodes: the analytic count is
+    # the lane-iterations plus the finalize's L rows at that many nodes
+    n_sub = int(model.nodes.submerged.sum())
+    flops = ((st["lane_iters_executed"] + L)
+             * lane_iteration_flops(n_sub, model.nw)
+             + L * _LADDER_EXTRA_SOLVES * _GJ_FLOPS * model.nw)
+    if st["flops_executed"] != flops:
+        raise AssertionError(f"flops_executed {st['flops_executed']} != "
+                             f"{flops}")
     for x, y in zip(wf[:2], ref[:2]):
         if not torch.equal(x, y):
             raise AssertionError("megabatch waterfall != legacy batch")
@@ -448,7 +469,8 @@ def megabatch_phase(rt, model, args):
     print(f"phase megabatch: lanes={L} iters {it.min()}..{it.max()} "
           f"converged={int(rep.converged.sum())} rungs={st['rungs']} "
           f"lane_iters={st['lane_iters_executed']}/"
-          f"{st['lane_iters_monolithic']} waterfall_bit_identical=True "
+          f"{st['lane_iters_monolithic']} flops_executed="
+          f"{st['flops_executed']:.4e} waterfall_bit_identical=True "
           f"fused_flags_identical=True fused_blocks={st_fu['blocks']} "
           f"suspended_survivors={survivors} resumed_bit_identical=True "
           f"legacy_s={t_leg:.4f} waterfall_s={t_wf:.4f} fused_s="

@@ -43,13 +43,16 @@
 // another order than the plain PyTorch version's, so the two agree to
 // round-off, not to the bit.
 //
-// Bound on this card.  Per lane and trip at N nodes and W frequencies:
-// about 135 N W operations for the node passes, 3745 W for the assembly
-// and the systems, 240 N and 90 W more (kernels/fused_block.py,
-// lane_iteration_flops): 1.79 MFLOP at the flagship's N = 74, W = 128.
-// A call at L = 16 lanes and K = 4 in f64 reads about 9.8 MB (most of it
-// u) and does at most 0.11 GFLOP: 2.9 us of memory time, 3.4 us of FP64
-// time, so a few microseconds.  The flagship gives only 16 CTAs for 132
+// Bound on this card.  Drag acts on the submerged nodes only, and the
+// node passes skip the others, so the work counts S submerged nodes, not
+// all N.  Per lane and trip at W frequencies: about 135 S W operations
+// for the node passes, 3745 W for the assembly and the systems, 240 S
+// and 90 W more (kernels/fused_block.py, lane_iteration_flops): 1.16
+// MFLOP at the flagship's S = 38 (of N = 74), W = 128.  A call at L = 16
+// lanes and K = 4 in f64 moves about 6.3 MB (the submerged nodes' rows
+// of u, 3.7 MB, M and B, the state in and out) and does at most 74
+// MFLOP: 1.9 us of memory time, at most 2.2 us of FP64 time, so about
+// two microseconds.  The flagship gives only 16 CTAs for 132
 // SMs, so the kernel will sit far from that bound; splitting W across
 // the CTAs of a thread-block cluster, with the reductions in distributed
 // shared memory, is the later fix.

@@ -32,6 +32,11 @@ from raft_tpu_torch.hydro import linearized_drag
 from raft_tpu_torch.kernels.gj_solve import gj_solve
 from raft_tpu_torch.precision import mp_round
 
+#: the fixed point's convergence tolerance: a lane converges when every
+#: amplitude moved by less than TOL of (its magnitude + TOL); the fused
+#: kernel (kernels/fused_block.py) takes the same constant
+TOL = 0.01
+
 
 def _eliminate(M):
     """gj_solve over any leading batch shape of ``M [..., n, m]``."""
@@ -218,7 +223,7 @@ def gated_trip(ph, state):
 
 
 def fixed_point_phases(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
-                       F_lin_i, XiStart, nIter=15, tol=0.01, refine=1,
+                       F_lin_i, XiStart, nIter=15, tol=TOL, refine=1,
                        relax=0.8, mp=False):
     """Build the fixed-point phases of a lane batch (see
     :class:`FixedPointPhases`).
@@ -330,7 +335,7 @@ def fixed_point_phases(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
 
 
 def solve_dynamics(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
-                   F_lin_i, XiStart, nIter=15, tol=0.01, refine=1,
+                   F_lin_i, XiStart, nIter=15, tol=TOL, refine=1,
                    relax=0.8, mp=False):
     """Fixed-point dynamics solve for a batch of cases: the phases of
     :func:`fixed_point_phases` (same operands) composed into gated trips

@@ -40,6 +40,7 @@ import os
 
 import torch
 
+from raft_tpu_torch.dynamics import TOL
 from raft_tpu_torch.kernels import _build
 from raft_tpu_torch.kernels._build import BUILD_DIR, nvcc
 from raft_tpu_torch.kernels.gj_solve import gj_solve_reference
@@ -58,22 +59,24 @@ _NODE_FIELDS = ("r", "q", "qMat", "p1Mat", "p2Mat", "a_q", "a_p1", "a_p2",
                 "submerged")
 
 
-def lane_iteration_flops(n_nodes, nw):
-    """Operations of one fixed-point trip of one lane at ``n_nodes`` strip
-    nodes and ``nw`` frequencies, counted from the algorithm (each
+def lane_iteration_flops(n_submerged, nw):
+    """Operations of one fixed-point trip of one lane with ``n_submerged``
+    submerged strip nodes (the only ones drag acts on; the kernel skips
+    the others) and ``nw`` frequencies, counted from the algorithm (each
     addition, multiplication, division and square root is one):
 
-    - 135 per node and frequency: node motion, relative velocity and the
-      three RMS sums (75), the drag force and its moment (60);
-    - 240 per node: the RMS roots, the drag coefficients, Bmat and its
-      3->6 transform into B_drag;
+    - 135 per submerged node and frequency: node motion, relative
+      velocity and the three RMS sums (75), the drag force and its moment
+      (60);
+    - 240 per submerged node: the RMS roots, the drag coefficients, Bmat
+      and its 3->6 transform into B_drag;
     - 3745 per frequency: the impedance (145), the right-hand side (12)
       and the 12x13 Gauss-Jordan elimination (12 steps of 13 divisions
       and 11 x 13 multiply-subtracts: 3588);
     - 90 per frequency: the convergence test and the relaxed update of
       the 6 amplitudes.
     """
-    return 135 * n_nodes * nw + 240 * n_nodes + 3835 * nw
+    return 135 * n_submerged * nw + 240 * n_submerged + 3835 * nw
 
 
 def start_build(verbose=False):
@@ -155,18 +158,19 @@ def _check(nodes, u, C, M, B, Fr, Fi, state, w):
 
 
 def fused_block(nodes, u, C, M, B, Fr, Fi, state, *, w, dw, rho, relax,
-                nIter, K, tol=0.01):
+                nIter, K):
     """K gated fixed-point trips of every lane (see the module
     docstring).  CPU tensors take the plain version, CUDA tensors the
     kernel.  ``w`` is the [W] frequency grid in the working dtype, ``dw``
     its spacing, ``rho`` the water density, ``relax`` the new-iterate
     weight of the relaxed update, ``nIter`` the iteration limit (a lane
-    runs while ``i < nIter + 1``), ``tol`` the convergence tolerance."""
+    runs while ``i < nIter + 1``); the convergence tolerance is
+    ``dynamics.TOL``."""
     global launches
     if u.device.type == "cpu":
         return fused_block_reference(nodes, u, C, M, B, Fr, Fi, state, w=w,
                                      dw=dw, rho=rho, relax=relax,
-                                     nIter=nIter, K=K, tol=tol)
+                                     nIter=nIter, K=K)
     if u.device.type != "cuda":
         raise ValueError(f"fused_block runs on cuda or cpu, not {u.device}")
     shared = _check(nodes, u, C, M, B, Fr, Fi, state, w)
@@ -190,7 +194,7 @@ def fused_block(nodes, u, C, M, B, Fr, Fi, state, *, w, dw, rho, relax,
     stream = torch.cuda.current_stream(u.device).cuda_stream
     with torch.cuda.device(u.device):
         rc = fn(in_ptrs, out_ptrs, L, N, W, int(not shared), float(dw),
-                _c_drag(rho), float(tol), float(relax),
+                _c_drag(rho), TOL, float(relax),
                 round(1.0 - float(relax), 12), int(nIter), int(K), stream)
     if rc != 0:
         raise RuntimeError(f"fused_block kernel launch failed: CUDA error "
@@ -265,7 +269,7 @@ def _fp_step(nodes, ur, ui, C, M, B, Flr, Fli, w, dw, c_drag, XLr, XLi):
 
 
 def fused_block_reference(nodes, u, C, M, B, Fr, Fi, state, *, w, dw, rho,
-                          relax, nIter, K, tol=0.01):
+                          relax, nIter, K):
     """The plain PyTorch version of :func:`fused_block` (any device): the
     same K gated trips in split real/imaginary arithmetic."""
     _check(nodes, u, C, M, B, Fr, Fi, state, w)
@@ -282,8 +286,8 @@ def fused_block_reference(nodes, u, C, M, B, Fr, Fi, state, *, w, dw, rho,
         finite = (torch.isfinite(Xr).all(-1).all(-1)
                   & torch.isfinite(Xj).all(-1).all(-1))
         num = torch.sqrt((Xr - xnr) * (Xr - xnr) + (Xj - xni) * (Xj - xni))
-        den = torch.sqrt(Xr * Xr + Xj * Xj) + tol
-        conv = (num / den < tol).all(-1).all(-1)          # NaN compares False
+        den = torch.sqrt(Xr * Xr + Xj * Xj) + TOL
+        conv = (num / den < TOL).all(-1).all(-1)          # NaN compares False
         newdone = conv | ~finite
         nd3, fin3 = newdone[:, None, None], finite[:, None, None]
         new = (it + 1,

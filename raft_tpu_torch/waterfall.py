@@ -184,6 +184,7 @@ class SuspendedWaterfall:
     blocks: int
     lane_iters: int
     rungs: list
+    lane_sub: torch.Tensor = None   # submerged nodes per lane (host)
     yields: int = 1
     flops: float = 0.0
 
@@ -206,12 +207,15 @@ def last_dispatch_stats():
     legacy batch pays); ``block_iters``; ``kernel``; ``yields``; and
     ``flops_executed``, reckoned as
 
-        lane_iters_executed * lane_iteration_flops(N, nw)
-          + Lq * (lane_iteration_flops(N, nw) + 5 * 3588 * nw)
+        sum over blocks of K * sum over the rung's rows of
+            lane_iteration_flops(S_row, nw)
+          + sum over the Lq finalize rows of lane_iteration_flops(S_row, nw)
+          + Lq * 5 * 3588 * nw
 
-    (kernels/fused_block.py counts one trip; the finalize is one more
-    assembly and solve plus the ladder's five further 12x13
-    eliminations per frequency; the prelude is not counted)."""
+    with S_row the row's count of submerged nodes (kernels/fused_block.py
+    counts one trip; the finalize is one more assembly and solve plus the
+    ladder's five further 12x13 eliminations per frequency; the prelude
+    is not counted)."""
     return dict(_LAST_STATS)
 
 
@@ -273,6 +277,10 @@ def waterfall_dispatch(physics, nodes_slots, args_slots, relax=0.8,
     nodes_p = nodes_slots if shared_nodes else _map_nodes(
         lambda a: _pad_rows(a, Lq), nodes_slots)
     args_p = tuple(_pad_rows(a, Lq) for a in args_slots)
+    # submerged nodes per lane (one count for a shared bundle), for
+    # flops_executed: copied to the host without a sync; the first
+    # block's read of done completes the copy before it is used
+    lane_sub = nodes_slots.submerged.sum(-1).to("cpu", non_blocking=True)
     u, Fr, Fi, state = pipes[0](nodes_p, *args_p)
     operands = (u, *args_p[2:5], Fr, Fi)
     # host bookkeeping: row -> original lane id (-1 = padding)
@@ -281,7 +289,7 @@ def waterfall_dispatch(physics, nodes_slots, args_slots, relax=0.8,
         physics, float(relax), K, bool(kernel), bool(shared_nodes),
         bool(mixed_precision), L, Lq, nodes_p, operands, nodes_p, operands,
         state, ids, None, 0, 0, 0, [], 0, block_fn, finalize_fn,
-        should_yield, 0.0)
+        should_yield, 0.0, lane_sub)
 
 
 def _slabbed(physics, nodes, args, relax, K, kernel, S, shared_nodes,
@@ -332,21 +340,31 @@ def _waterfall_resume(sus, should_yield=None):
         tuple(to(t) for t in sus.operands), tuple(to(t) for t in sus.state),
         np.array(sus.ids), store, sus.trips, sus.blocks, sus.lane_iters,
         list(sus.rungs), sus.yields, block_fn, finalize_fn, should_yield,
-        sus.flops)
+        sus.flops, sus.lane_sub)
+
+
+def _trip_flops(lane_sub, ids, nw):
+    """Operations of one trip over the rows ``ids`` (lane ids; -1 marks a
+    padding row, which repeats row 0's lane); ``lane_sub`` holds each
+    lane's submerged-node count, or one count for a shared bundle."""
+    sub = lane_sub.numpy()
+    if sub.ndim:
+        sub = sub[np.where(ids >= 0, ids, ids[0])]
+    return int(np.broadcast_to(lane_iteration_flops(sub, nw),
+                               ids.shape).sum())
 
 
 def _waterfall_loop(physics, relax, K, kernel, shared_nodes,
                     mixed_precision, L, Lq, nodes_p, operands_full,
                     nodes_cur, operands, state, ids, state_store, trips,
                     blocks, lane_iters, rungs, yields, block_fn,
-                    finalize_fn, should_yield, flops):
+                    finalize_fn, should_yield, flops, lane_sub):
     """The block / retire / compact loop shared by fresh and resumed
     dispatches: one code path, so a suspension cannot change the
     scheduler's decisions (same rungs, same retirement trips)."""
     max_trips = int(physics.nIter) + 1
     device = operands[0].device
-    N, nw = operands[0].shape[1], operands[0].shape[-1]
-    it_flops = lane_iteration_flops(N, nw)
+    nw = operands[0].shape[-1]
 
     while True:
         rungs.append(len(ids))
@@ -354,8 +372,8 @@ def _waterfall_loop(physics, relax, K, kernel, shared_nodes,
         blocks += 1
         trips += K
         lane_iters += len(ids) * K
-        flops += len(ids) * K * it_flops
         done = state[4].cpu().numpy()          # the block's one host sync
+        flops += K * _trip_flops(lane_sub, ids, nw)
         retire = done | (trips >= max_trips)
         real = ids >= 0
         retiring = np.where(retire & real)[0]
@@ -405,13 +423,16 @@ def _waterfall_loop(physics, relax, K, kernel, shared_nodes,
                 state_store=None if state_store is None
                 else [_host(t) for t in state_store],
                 trips=trips, blocks=blocks, lane_iters=lane_iters,
-                rungs=list(rungs), yields=yields + 1, flops=flops)
+                rungs=list(rungs), lane_sub=lane_sub, yields=yields + 1,
+                flops=flops)
 
     # the retired states, already in the caller's lane order, finalize in
     # one ladder pass at the original rung
     state_full = tuple(_pad_rows(buf, Lq) for buf in state_store)
     xr, xi, report = finalize_fn(nodes_p, *operands_full, state_full)
-    flops += Lq * (it_flops + _LADDER_EXTRA_SOLVES * _GJ_FLOPS * nw)
+    ids_full = np.concatenate([np.arange(L), np.full(Lq - L, -1, np.int64)])
+    flops += (_trip_flops(lane_sub, ids_full, nw)
+              + Lq * _LADDER_EXTRA_SOLVES * _GJ_FLOPS * nw)
 
     _LAST_STATS.clear()
     _LAST_STATS.update(

@@ -25,6 +25,7 @@ from raft_tpu.waterfall import waterfall_dispatch as jax_waterfall_dispatch
 import raft_tpu_torch
 from raft_tpu_torch.convert import case_args_from_numpy, nodes_from_numpy
 from raft_tpu_torch.designs import deep_spar
+from raft_tpu_torch.kernels.fused_block import lane_iteration_flops
 from raft_tpu_torch.model import make_case_dynamics
 from raft_tpu_torch.serve.buckets import SlotPhysics
 from raft_tpu_torch.waterfall import (
@@ -66,7 +67,8 @@ def lanes():
     for f in ("Cd_q", "Cd_p1", "Cd_p2", "Cd_End"):
         nodes[f] = nodes[f] * cdf[:, None]
     physics = SlotPhysics.from_model(m)
-    return dict(model=m, nodes=nodes, args=tuple(args16), physics=physics,
+    return dict(model=m, case_args=args, nodes=nodes, args=tuple(args16),
+                physics=physics,
                 jphys=JaxSlotPhysics(**physics._asdict()),
                 nodes_j=JaxHydroNodes(**nodes))
 
@@ -137,7 +139,11 @@ def test_waterfall_is_bit_identical_to_port_legacy(lanes, port_waterfall):
     assert st["n_lanes"] == 16 and not st["kernel"]
     assert min(st["rungs"]) < max(st["rungs"]), st["rungs"]
     assert st["lane_iters_executed"] < st["lane_iters_monolithic"]
-    assert st["flops_executed"] > 0
+    # every lane has the same submerged nodes: the analytic count is
+    # lane-iterations plus the finalize's 16 rows at that many nodes
+    trip = lane_iteration_flops(int(m.nodes.submerged.sum()), len(m.w))
+    assert st["flops_executed"] == (st["lane_iters_executed"] + 16) * trip \
+        + 16 * 5 * 3588 * len(m.w)
 
 
 def test_fused_mode_matches_raft_tpu_fused(lanes):
@@ -198,21 +204,22 @@ def test_shared_nodes_flag_must_match_the_bundle(lanes):
 
 
 @pytest.fixture(scope="module")
-def model_runs():
-    """The port's Model in each mode, and raft_tpu's dynamics in the same
-    mode fed the port's own prepared case inputs (raft_tpu's host prep is
-    held against the port's in tests/test_torch_model.py)."""
+def model_runs(lanes):
+    """Xi and the solve report of the spar Model's ``analyze_cases`` in
+    each mode (one Model, solved three times)."""
+    tm = lanes["model"]
     runs = {}
     for mode in ("legacy", "waterfall", "fused"):
-        tm = raft_tpu_torch.Model(_spar(), device="cpu")
-        tm.analyze_unloaded()
         tm.analyze_cases(fixed_point=mode)
-        runs[mode] = tm
+        runs[mode] = tm.Xi, tm.results["solve_report"]
     return runs
 
 
-def _jax_dynamics(tm, mode):
-    args, _ = tm.prepare_case_inputs(verbose=False)
+def _jax_dynamics(lanes, mode):
+    """raft_tpu's dynamics in ``mode`` fed the port's own prepared case
+    inputs (raft_tpu's host prep is held against the port's in
+    tests/test_torch_model.py)."""
+    tm, args = lanes["model"], lanes["case_args"]
     nodes = JaxHydroNodes(**{f.name: getattr(tm.nodes, f.name).numpy()
                              for f in dataclasses.fields(tm.nodes)})
     if mode == "legacy":
@@ -229,15 +236,15 @@ def _jax_dynamics(tm, mode):
 
 
 @pytest.mark.parametrize("mode", ["legacy", "waterfall", "fused"])
-def test_analyze_cases_modes_match_raft_tpu(mode, model_runs):
+def test_analyze_cases_modes_match_raft_tpu(mode, lanes, model_runs):
     """Model.analyze_cases(fixed_point=mode) against raft_tpu's dynamics
     in the same mode: Xi within 1e-8, identical flags; the waterfall is
     bit-identical to the port's legacy run."""
-    tm = model_runs[mode]
-    jxr, jxi, jrep = _jax_dynamics(tm, mode)
+    Xi, rep = model_runs[mode]
+    jxr, jxi, jrep = _jax_dynamics(lanes, mode)
     jx = jxr + 1j * jxi
-    assert np.abs(tm.Xi - jx).max() <= 1e-8 * np.abs(jx).max()
+    assert np.abs(Xi - jx).max() <= 1e-8 * np.abs(jx).max()
     for f in FLAGS:
-        assert np.array_equal(tm.results["solve_report"][f], jrep[f]), f
+        assert np.array_equal(rep[f], jrep[f]), f
     if mode == "waterfall":
-        assert np.array_equal(tm.Xi, model_runs["legacy"].Xi)
+        assert np.array_equal(Xi, model_runs["legacy"][0])

@@ -5,9 +5,10 @@
 Phases (each prints a line; any failure raises and exits non-zero):
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. build of the CUDA kernels raft_tpu_torch/csrc/gj_solve.cu and
-   fused_block.cu (one nvcc each, started together, sm_90a), with the
-   compiler's register report and the build seconds;
+2. build of the CUDA kernels raft_tpu_torch/csrc/gj_solve.cu,
+   fused_block.cu, tile_inv.cu and mm.cu (one nvcc each, started
+   together, sm_90a), with the compiler's register report and the build
+   seconds;
 3. the Gauss-Jordan kernel against its plain PyTorch version on the card
    at the main path's shape [1536, 12, 13], in float64 and float32, with
    zero-diagonal systems (row swaps) and one NaN system; kernel, plain and
@@ -39,7 +40,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
    ``flops_executed`` is the analytic count;
 10. mixed precision with float32 working dtype in the waterfall mode:
     RAO against the same policy on the CPU (within 1e-4) and against
-    the float64 card run (printed; the policy's own error).
+    the float64 card run (printed; the policy's own error);
+11. the BEM solve's pivot-tile inverse kernel against its plain version
+    at [512, 512] in float32 and float64 with a row swap at every step;
+    kernel, plain and ``torch.linalg.inv`` (the yardstick) times and the
+    bound;
+12. the matrix-product kernels ``mm`` and ``mm_sub`` against their plain
+    versions at the four products of one elimination step at 2N = 5120
+    (Dinv @ D, Dinv @ Db, A - C @ Arow, b - C @ brow), float32 and
+    float64; kernel, plain, cuBLAS (``torch.matmul`` /
+    ``torch.addmm``, the yardstick) times and the bound;
+13. the native BEM solve: the flagship with every member potential-flow
+    at its default panel sizes (2470 panels padded to 2560, so the real
+    block system has 5120 rows, 10 pivot blocks of 512) through
+    ``Model(design).run_bem()`` on the card, with 10 / 20 / 20 launches
+    of tile_inv / mm / mm_sub per solved frequency, timed as host (mesh,
+    Rankine) and device (assembly, solve) time; one frequency held
+    against the same card form on the CPU;
+14. the main path with those coefficients: ``analyze_cases`` in float64
+    on the card, every case converged, Xi within 1e-8 of the CPU run
+    with the same coefficients.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -69,6 +89,8 @@ B, N, M = 1536, 12, 13
 # lane of the 12 cases)
 RUNG, K_BLOCK, NAN_LANE = 16, 4, 13
 MEGA_LANES = 64
+# the BEM solve's pivot tile
+N_TILE = 512
 # RAO L-inf (relative to the peak) of the mixed-precision policy against
 # float64 on the flagship, measured on the CPU for raft_tpu and the port
 # alike by tests/torch_mp_policy_linf.py: 4.24e-2 (docs/torch_port.md
@@ -120,13 +142,18 @@ def dtype_name(dtype):
 # ---------------------------------------------------------------- build
 
 def build_phase(kernel_modules):
+    """Start every nvcc at once, then wait for each module's builds."""
     t0 = time.perf_counter()
     jobs = [(km, km.start_build(verbose=True)) for km in kernel_modules]
+    n = 0
     for km, job in jobs:
         km.build(verbose=True, job=job)
-        print(f"phase build: {km.SOURCE} -> sm_90a, done "
-              f"{time.perf_counter() - t0:.2f} s after the start", flush=True)
-    print(f"phase build: {len(jobs)} kernels in "
+        for src in getattr(km, "SOURCES", (getattr(km, "SOURCE", None),)):
+            n += 1
+            print(f"phase build: {src} -> sm_90a, done "
+                  f"{time.perf_counter() - t0:.2f} s after the start",
+                  flush=True)
+    print(f"phase build: {n} sources in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
@@ -496,6 +523,205 @@ def mixed_precision_phase(rt, Timers, legacy):
           f"{mp.solve_report.iters.tolist()} {split(times)}", flush=True)
 
 
+# ------------------------------------------------------ BEM kernels
+
+def tile_inv_phase(bg, dtype, tol):
+    """One [N_TILE, N_TILE] pivot tile whose diagonal is zero and whose
+    subdiagonal dominates: a row swap at every step."""
+    n = N_TILE
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((n, n)) + n * np.eye(n)
+    A[np.arange(n), np.arange(n)] = 0.0
+    A += np.roll(np.eye(n), 1, axis=0) * n
+    At = torch.as_tensor(A, dtype=dtype, device="cuda")
+    inv = bg.tile_inv(At)
+    ref = bg.tile_inv_reference(At)
+    torch.cuda.synchronize()
+    err = (inv - ref).abs().max().item()
+    x_max = ref.abs().max().item()
+    if not err <= tol * x_max:
+        raise AssertionError(
+            f"{dtype}: tile_inv vs plain max|d| {err} > {tol} * {x_max}")
+    resid = (inv.double() @ At.double()
+             - torch.eye(n, dtype=torch.float64, device="cuda")).abs().max()
+    ms = cuda_ms(lambda: bg.tile_inv(At), 20)
+    plain_ms = cuda_ms(lambda: bg.tile_inv_reference(At), 2, 1)
+    library_ms = cuda_ms(lambda: torch.linalg.inv(At), 20)
+    # the tile read once and the inverse written once; the 2 n^3
+    # operations an inverse needs (the elimination on [A | I] does 4 n^3)
+    item = torch.finfo(dtype).bits // 8
+    bound_ms, bound_by = bound(2 * n * n * item, 2 * n ** 3, dtype)
+    print(f"phase tile_inv kernel {dtype_name(dtype)}: [{n},{n}] row swaps "
+          f"at every step max_abs_err={err:.3e} (bar {tol:g}*max|x|="
+          f"{tol * x_max:.3e}) |inv@A-I|={resid.item():.2e} ms={ms:.5f} "
+          f"plain_ms={plain_ms:.3f} library_ms={library_ms:.5f} bound_ms="
+          f"{bound_ms:.6f} ({bound_by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+# the products of one elimination step at 2N = 5120, pivot block 512,
+# 6 radiation modes + 1 heading
+MM_SHAPES = (("Dinv@D", "mm", 512, 512, 5120),
+             ("Dinv@Db", "mm", 512, 512, 7),
+             ("A-C@Arow", "mm_sub", 5120, 512, 5120),
+             ("b-C@brow", "mm_sub", 5120, 512, 7))
+
+
+def mm_phase(bg, dtype):
+    """Each product against its plain version (``L @ R``, ``X - L @ R``)
+    within the accumulated rounding K eps max(|L| @ |R|); cuBLAS
+    (``torch.matmul``, ``torch.addmm(X, L, R, alpha=-1)``) as the
+    yardstick.  Returns the numbers of each shape, with the path's two
+    kernels' entries at Dinv@D (mm) and the A-update (mm_sub)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    item = torch.finfo(dtype).bits // 8
+    out = {}
+    for name, kernel, M, K, N in MM_SHAPES:
+        L, R, X = (torch.randn(*shape, generator=g, device="cuda",
+                               dtype=dtype)
+                   for shape in ((M, K), (K, N), (M, N)))
+        if kernel == "mm":
+            run = lambda: bg.mm(L, R)                       # noqa: E731
+            plain = lambda: bg.mm_reference(L, R)           # noqa: E731
+            library = lambda: torch.matmul(L, R)            # noqa: E731
+            nbytes = (M * K + K * N + M * N) * item
+        else:
+            run = lambda: bg.mm_sub(X, L, R)                # noqa: E731
+            plain = lambda: bg.mm_sub_reference(X, L, R)    # noqa: E731
+            library = lambda: torch.addmm(X, L, R, alpha=-1)  # noqa: E731
+            nbytes = (M * K + K * N + 2 * M * N) * item
+        err = (run() - plain()).abs().max().item()
+        tol = K * torch.finfo(dtype).eps * (L.abs() @ R.abs()).max().item()
+        if not err <= tol:
+            raise AssertionError(f"{dtype} {name}: {kernel} vs plain max|d| "
+                                 f"{err} > K eps max(|L|@|R|) = {tol}")
+        flops = 2 * M * K * N
+        iters = 10 if N > 7 else 50
+        ms = cuda_ms(run, iters)
+        plain_ms = cuda_ms(plain, iters)
+        library_ms = cuda_ms(library, iters)
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        print(f"phase {kernel} kernel {dtype_name(dtype)} {name}: "
+              f"[{M},{K}]x[{K},{N}] max_abs_err={err:.3e} (bar {tol:.3e}) "
+              f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms="
+              f"{library_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}) "
+              f"tflops={flops / ms / 1e9:.2f}", flush=True)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+    return dict(mm=out["Dinv@D"], mm_sub=out["A-C@Arow"], shapes=out)
+
+
+# ----------------------------------------------------------- BEM path
+
+def bem_design(rt):
+    """The flagship with every member potential-flow (potModMaster = 2)."""
+    design = flagship(rt)
+    design["platform"]["potModMaster"] = 2
+    return design
+
+
+def bem_phase(rt, bg, gk, fk, Timers, ti, mm):
+    """Model(design).run_bem() on the card at the design's default panel
+    sizes, with the kernels' launch counts set to 0 just before it; one
+    solved frequency held against the same card form on the CPU."""
+    from raft_tpu_torch import bem_solver as tb
+    from raft_tpu_torch import mesh
+
+    model = rt.Model(bem_design(rt))
+    model.analyze_unloaded()
+    bg.reset_launches()
+    gk.launches = fk.launches = 0
+    with Timers() as tm:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coeffs = model.run_bem()
+        wall_s = time.perf_counter() - t0
+    launches = dict(bg.launches)
+    rep = {k: v["total_s"] for k, v in tm.report().items()}
+    info = coeffs.solver_info
+    nf = len(coeffs.w)
+    blocks = 2 * info["npanels_solved"] // 512
+    expected = {"tile_inv": blocks * nf, "mm": 2 * blocks * nf,
+                "mm_sub": 2 * blocks * nf}
+    if info != {"npanels": 2470, "npanels_solved": 2560} or blocks != 10:
+        raise AssertionError(f"unexpected BEM mesh {info}")
+    if launches != expected or gk.launches or fk.launches:
+        raise AssertionError(f"BEM launches {launches} != {expected} for "
+                             f"{nf} solved frequencies")
+    for k in ("A", "B", "X"):
+        if not np.isfinite(getattr(coeffs, k)).all():
+            raise AssertionError(f"non-finite BEM {k}")
+    # the elimination of one frequency from the kernel phases' times
+    sh = mm["shapes"]
+    solve_ms = blocks * (ti["ms"] + sh["Dinv@D"]["ms"] + sh["Dinv@Db"]["ms"]
+                         + sh["A-C@Arow"]["ms"] + sh["b-C@brow"]["ms"])
+
+    i = nf // 2
+    panels = mesh.mesh_platform([m for m in model.members if m.potMod],
+                                dz_max=3.0, da_max=2.0)
+    t1 = time.perf_counter()
+    ref = tb.solve_bem(panels, [coeffs.w[i]],
+                       betas=np.deg2rad(coeffs.headings), rho=model.rho_water,
+                       g=model.g, depth=model.depth,
+                       lid_panels=mesh.lid_panels_from_mesh(panels),
+                       backend="cuda", device="cpu")
+    cpu_s = time.perf_counter() - t1
+    gaps = {}
+    for k, bar in (("A", 2e-4), ("B", 1e-3), ("X", 2e-4)):
+        r = ref[k][0]
+        gaps[k] = np.abs(getattr(coeffs, k)[i] - r).max() / np.abs(r).max()
+        if not gaps[k] <= bar:
+            raise AssertionError(f"BEM {k} at w={coeffs.w[i]:.4f}: card vs "
+                                 f"CPU {gaps[k]:.3e} > {bar:g}")
+    host_s = rep["bem_mesh"] + rep["bem_rankine"]
+    print(f"phase bem solve: panels={info['npanels']} solved_as="
+          f"{info["npanels_solved"]} rows={2 * info["npanels_solved"]} "
+          f"pivot_blocks={blocks} "
+          f"frequencies={nf} launches={launches} run_bem_s={wall_s:.3f} "
+          f"host_s={host_s:.3f} (mesh {rep['bem_mesh']:.3f}, rankine "
+          f"{rep['bem_rankine']:.3f}) device_s={rep['bem_device']:.3f} "
+          f"(of which elimination ~{nf * solve_ms / 1e3:.3f} s: "
+          f"{solve_ms:.3f} ms per frequency from the kernel phases) "
+          f"cpu_check w={coeffs.w[i]:.4f} gap_A={gaps['A']:.2e} gap_B="
+          f"{gaps['B']:.2e} gap_X={gaps['X']:.2e} cpu_check_s={cpu_s:.1f}",
+          flush=True)
+    return model, launches
+
+
+def bem_main_path_phase(rt, gk, bg, Timers, model):
+    """analyze_cases in float64 on the card with the BEM coefficients;
+    the same coefficients on the CPU."""
+    bg.reset_launches()
+    gk.launches = 0
+    with Timers() as tm:
+        with tm.time("analyze_cases"):
+            model.analyze_cases()
+    times = {k: v["total_s"] for k, v in tm.report().items()}
+    rep = model.solve_report
+    trips = int(rep.iters.max())
+    if not rep.converged.all() or rep.nonfinite.any():
+        raise AssertionError(f"unhealthy BEM cases: {rep}")
+    if gk.launches != trips + LADDER_SOLVES or any(bg.launches.values()):
+        raise AssertionError(f"BEM main path launches gj={gk.launches} "
+                             f"bem={bg.launches}")
+    cpu = rt.Model(bem_design(rt), device="cpu")
+    cpu.analyze_unloaded()
+    cpu.bem_coeffs = model.bem_coeffs
+    cpu.analyze_cases()
+    xi_rel = np.abs(model.Xi - cpu.Xi).max() / np.abs(cpu.Xi).max()
+    if not xi_rel <= 1e-8:
+        raise AssertionError(f"BEM main path card vs CPU Xi rel {xi_rel}")
+    out = model.calc_outputs()
+    if not np.isfinite(out["response"]["pitch RAO"]).all():
+        raise AssertionError("non-finite RAO")
+    print(f"phase bem main f64: cases={model.Xi.shape[0]} nw={model.nw} "
+          f"converged=all trips={trips} gj_launches={gk.launches} "
+          f"xi_rel_vs_cpu={xi_rel:.3e} {split(times)}", flush=True)
+
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -504,11 +730,12 @@ def main():
     print(card, flush=True)
 
     import raft_tpu_torch as rt
+    from raft_tpu_torch.kernels import bem_gj as bg
     from raft_tpu_torch.kernels import fused_block as fk
     from raft_tpu_torch.kernels import gj_solve as gk
     from raft_tpu_torch.utils.profiling import Timers
 
-    build_phase((gk, fk))
+    build_phase((gk, fk, bg))
     g64 = gj_kernel_phase(gk, torch.float64, 1e-12)
     gj_kernel_phase(gk, torch.float32, 1e-5)
 
@@ -523,6 +750,13 @@ def main():
     megabatch_phase(rt, legacy, args)
     mixed_precision_phase(rt, Timers, legacy)
 
+    ti32 = tile_inv_phase(bg, torch.float32, 1e-5)
+    tile_inv_phase(bg, torch.float64, 1e-12)
+    mm32 = {dt: mm_phase(bg, dt) for dt in (torch.float32, torch.float64)}
+    bem_model, l_bem = bem_phase(rt, bg, gk, fk, Timers, ti32,
+                                 mm32[torch.float32])
+    bem_main_path_phase(rt, gk, bg, Timers, bem_model)
+
     kernels = [
         dict(name="gj_solve", route="cuda",
              source="raft_tpu_torch/csrc/gj_solve.cu",
@@ -534,6 +768,16 @@ def main():
              source="raft_tpu_torch/csrc/fused_block.cu",
              replaces="raft_tpu/pallas_kernels.py:428",
              launches=l_fu["fused_block"], **f64),
+        dict(name="tile_inv", route="cuda",
+             source="raft_tpu_torch/csrc/tile_inv.cu",
+             replaces="raft_tpu/pallas_kernels.py:208",
+             launches=l_bem["tile_inv"], **ti32),
+        dict(name="mm", route="cuda", source="raft_tpu_torch/csrc/mm.cu",
+             replaces="raft_tpu/pallas_kernels.py:253",
+             launches=l_bem["mm"], **mm32[torch.float32]["mm"]),
+        dict(name="mm_sub", route="cuda", source="raft_tpu_torch/csrc/mm.cu",
+             replaces="raft_tpu/pallas_kernels.py:263",
+             launches=l_bem["mm_sub"], **mm32[torch.float32]["mm_sub"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in

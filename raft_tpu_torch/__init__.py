@@ -14,8 +14,11 @@ Device and dtype policy:
 - On the card every Gauss–Jordan solve is a launch of the hand-written
   CUDA kernel ``kernels.gj_solve``; on the CPU the same function runs as
   its plain PyTorch version.
-- Host stages — statics, the mooring Newton, the response metrics — run
-  in float64 on the CPU.
+- ``Model.run_bem()`` runs the native BEM solve on the Model's device;
+  on the card its blocked Gauss–Jordan goes through the hand-written
+  kernels of ``kernels.bem_gj`` (pivot-tile inverse, products).
+- Host stages — statics, the mooring Newton, the BEM mesh and Rankine
+  part, the response metrics — run in float64 on the CPU.
 - The working dtype of the dynamics is float64 by default;
   ``precision="float32"`` is accepted.  TF32 is off on the card.
 

@@ -11,6 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from raft_tpu_torch.bem import HydroCoeffs
 from raft_tpu_torch.geometry import HydroNodes
 
 _NODE_FIELDS = tuple(f.name for f in dataclasses.fields(HydroNodes))
@@ -40,3 +41,19 @@ def case_args_from_numpy(args, device, dtype):
         raise ValueError(f"expected the 7 case inputs, got {len(args)}")
     return tuple(torch.as_tensor(np.asarray(a), device=device, dtype=dtype)
                  for a in args)
+
+
+def hydro_coeffs_from_numpy(coeffs):
+    """The port's :class:`raft_tpu_torch.bem.HydroCoeffs` from any object
+    with the same fields as NumPy arrays (for example a
+    ``raft_tpu.bem.HydroCoeffs``): w, A, B and, where present, headings,
+    X, A0, Ainf and solver_info, copied."""
+    def arr(name):
+        v = getattr(coeffs, name, None)
+        return None if v is None else np.array(v)
+
+    info = getattr(coeffs, "solver_info", None)
+    return HydroCoeffs(
+        w=arr("w"), A=arr("A"), B=arr("B"), headings=arr("headings"),
+        X=arr("X"), A0=arr("A0"), Ainf=arr("Ainf"),
+        solver_info=None if info is None else dict(info))

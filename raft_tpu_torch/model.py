@@ -3,7 +3,10 @@
 The same surface and ``results`` keys as the JAX package's Model for the
 main path: ``Model(design)``, ``analyze_unloaded``, ``prepare_case_inputs``,
 ``analyze_cases`` (with the legacy, waterfall or fused fixed-point
-engine), ``solve_eigen``, ``calc_outputs`` and ``run_raft``.  The JAX
+engine), ``solve_eigen``, ``calc_outputs`` and ``run_raft``, and the
+potential-flow coefficients: ``import_bem``, ``run_bem`` (the native BEM
+solve), ``analyze_cases(runPyHAMS=..., meshDir=...)`` and
+``preprocess_hams``.  The JAX
 package's mode variables become explicit arguments:
 ``analyze_cases(fixed_point=..., block_iters=...)`` and
 ``Model(..., mixed_precision=...)``.
@@ -14,12 +17,23 @@ Work split:
  - the working device (``cuda`` by default): the batched case dynamics —
    wave kinematics at every strip node, Froude–Krylov excitation, the
    drag-linearization fixed point and its 12x12 Gauss–Jordan solves, all
-   cases at once.
+   cases at once — and the BEM solve's assembly and blocked
+   Gauss–Jordan (its mesh and Rankine part are host work).
 """
+
+import os
 
 import numpy as np
 import torch
 
+from raft_tpu_torch.bem import (
+    interp_to_grid,
+    read_capytaine_nc,
+    read_coeffs,
+    write_wamit_1,
+    write_wamit_3,
+    write_wamit_hst,
+)
 from raft_tpu_torch.convert import case_args_from_numpy
 from raft_tpu_torch.dynamics import fixed_point_phases, solve_phases
 from raft_tpu_torch.fatigue import dirlik_del
@@ -63,6 +77,28 @@ def _not_ported(what, item):
 
 def _host(a):
     return torch.as_tensor(np.asarray(a, np.float64))
+
+
+def _uniform_heading_grid(headings, resolution=1e-3, max_grid=73):
+    """Smallest uniform grid (in degrees) containing every requested
+    heading — the representation the HAMS control-file schedule can
+    describe (min/step/count).  {0, 30, 90} -> (0, 30, 60, 90).
+
+    Headings are snapped to ``resolution`` degrees first, and if the
+    uniform grid would exceed ``max_grid`` entries the exact requested set
+    is returned instead."""
+    import math
+
+    hs = sorted({round(float(h) / resolution) for h in headings})
+    if len(hs) <= 1:
+        return (hs[0] * resolution,) if hs else (0.0,)
+    step = 0
+    for d in np.diff(hs):
+        step = math.gcd(step, int(d))
+    n = (hs[-1] - hs[0]) // step + 1
+    if n > max_grid:
+        return tuple(h * resolution for h in hs)
+    return tuple((hs[0] + i * step) * resolution for i in range(n))
 
 
 def _np_dtype(dtype):
@@ -200,6 +236,7 @@ class Model:
         self._ICG_turbine = None
         self.results = {}
         self._pipeline = None
+        self.bem_coeffs = None
 
     # ------------------------------------------------------------------
     # statics / unloaded analysis
@@ -229,10 +266,65 @@ class Model:
         return self.results
 
     def import_bem(self, file1, file3=None):
-        raise _not_ported("potential-flow coefficients (import_bem)", 9)
+        """Load potential-flow radiation/diffraction coefficients from
+        WAMIT-format `.1`/`.3` files (the reference's pyHAMS
+        output-reading path, raft/raft_fowt.py:394-406), or from a
+        Capytaine NetCDF dataset when ``file1`` ends in ``.nc``.  Members
+        flagged ``potMod`` are already excluded from strip-theory inertial
+        terms via the packed ``strip_mask``."""
+        if str(file1).endswith(".nc"):
+            if file3 is not None:
+                raise ValueError(
+                    "import_bem: a Capytaine .nc dataset carries both "
+                    "radiation and excitation data; no second file expected"
+                )
+            self.bem_coeffs = read_capytaine_nc(file1)
+            return self.bem_coeffs
+        self.bem_coeffs = read_coeffs(file1, file3, rho=self.rho_water,
+                                      g=self.g)
+        return self.bem_coeffs
 
-    def run_bem(self, *args, **kwargs):
-        raise _not_ported("the native BEM solver (run_bem)", 9)
+    def run_bem(self, headings=(0.0,), nw_bem=24, dz_max=None, da_max=None,
+                panels=None, quad="gauss", w_grid=None, irr_removal=True,
+                n_devices=None):
+        """Run the native radiation/diffraction panel solver on all potMod
+        members (the reference's calcBEM path, raft/raft_fowt.py:318-423,
+        with the external HAMS run replaced by
+        raft_tpu_torch/bem_solver.py).
+
+        Coefficients are solved on a coarse grid spanning the model band
+        (min_freq_BEM .. max model frequency) and interpolated onto the
+        model grid inside the case inputs like imported WAMIT data.  Panel
+        sizes default to the design's dz_BEM/da_BEM.
+
+        The solve follows the Model's device: on ``cuda`` it runs the card
+        form (padded mesh, Chebyshev wave term, blocked Gauss–Jordan
+        through the CUDA kernels), on ``cpu`` the CPU form (bilinear
+        tables, complex LU).  ``n_devices`` > 1 raises
+        ``NotImplementedError``.
+        """
+        from raft_tpu_torch.bem_solver import coeffs_from_members
+
+        platform = self.design["platform"]
+        dz = dz_max if dz_max is not None else get_from_dict(
+            platform, "dz_BEM", default=3.0)
+        da = da_max if da_max is not None else get_from_dict(
+            platform, "da_BEM", default=2.0)
+        if w_grid is not None:
+            w_bem = np.asarray(w_grid, float)
+        else:
+            w_min = 2 * np.pi * get_from_dict(
+                platform, "min_freq_BEM", default=self.w[0] / 2 / np.pi)
+            w_bem = np.linspace(max(w_min, self.w[0]), self.w[-1], nw_bem)
+        self.bem_coeffs = coeffs_from_members(
+            [m for m in self.members if m.potMod], w_bem,
+            headings_deg=headings, rho=self.rho_water, g=self.g,
+            dz_max=dz, da_max=da, panels=panels, quad=quad,
+            backend="cuda" if self.device.type == "cuda" else "cpu",
+            device=self.device, depth=self.depth,
+            irr_removal=irr_removal, n_devices=n_devices,
+        )
+        return self.bem_coeffs
 
     def _mooring_and_offsets(self, F_aero0):
         """Mean offsets + linearized mooring for a batch of mean-load
@@ -386,6 +478,22 @@ class Model:
         F_add_r = np.zeros((ncase, self.nw, 6), dt)  # BEM excitation slot
         F_add_i = np.zeros((ncase, self.nw, 6), dt)
 
+        # ---- potential-flow coefficients (reference raft_fowt.py:486-495:
+        # A_BEM/B_BEM join the frequency-dependent linear terms and
+        # F_BEM = X_BEM * zeta joins the excitation) ----
+        if self.bem_coeffs is not None:
+            # A/B are case-independent; only the excitation heading varies
+            A_bem, B_bem, _ = interp_to_grid(self.bem_coeffs, self.w)
+            M_lin += A_bem.astype(dt)[None]
+            B_lin += B_bem.astype(dt)[None]
+            for i in range(ncase):
+                _, _, X_bem = interp_to_grid(
+                    self.bem_coeffs, self.w, beta=np.rad2deg(beta[i])
+                )
+                F_bem = X_bem * zeta[i][:, None]
+                F_add_r[i] = np.real(F_bem).astype(dt)
+                F_add_i[i] = np.imag(F_bem).astype(dt)
+
         args = (zeta.astype(dt), beta.astype(dt), C_lin, M_lin, B_lin,
                 F_add_r, F_add_i)
         aux = dict(
@@ -408,14 +516,36 @@ class Model:
             ``ValueError``.
         block_iters : trips per waterfall block (default 4).
 
-        The potential-flow solve (``runPyHAMS``/``meshDir``) and a
-        delegated ``solver`` raise ``NotImplementedError``.
+        runPyHAMS=True runs the native BEM solve on the potMod members
+        first (``run_bem`` at every case wave heading, on a uniform heading
+        grid), unless coefficients are already loaded; with ``meshDir``
+        it goes through ``preprocess_hams`` and also writes the HAMS/WAMIT
+        tree there.  A delegated ``solver`` raises ``NotImplementedError``.
         """
         check_mode(fixed_point, self.mixed_precision)
-        if runPyHAMS or meshDir:
-            raise _not_ported("the potential-flow solve (runPyHAMS)", 9)
         if solver is not None:
             raise _not_ported("delegated solves (solver=)", 12)
+        if runPyHAMS and any(m.potMod for m in self.members):
+            if self.bem_coeffs is None:
+                # solve at every distinct case wave heading so off-axis
+                # cases get their own excitation column; the set is
+                # expanded to a uniform grid because the HAMS control
+                # file (and preprocess_hams) describes headings as
+                # min/step/count
+                headings = _uniform_heading_grid(
+                    float(c.get("wave_heading", 0.0))
+                    for c in cases_as_dicts(self.design)
+                )
+                if meshDir:  # also write the HAMS/WAMIT tree there
+                    self.preprocess_hams(mesh_dir=meshDir, headings=headings)
+                else:
+                    self.run_bem(headings=headings)
+            elif meshDir:
+                logger.warning(
+                    "analyze_cases: BEM coefficients already loaded; "
+                    "meshDir ignored — call preprocess_hams() directly to "
+                    "write the HAMS/WAMIT tree"
+                )
         with timer("case_prep"):
             args, aux = self.prepare_case_inputs()
         cases = aux["cases"]
@@ -612,7 +742,13 @@ class Model:
             p["F_lines0"] = self.F_moor0
             p["C_lines0"] = self.C_moor0
             p["M support structure"] = st.M_struc_subCM
-            p["A support structure"] = self._A_morison.copy()
+            A_support = self._A_morison.copy()
+            if self.bem_coeffs is not None:
+                # reference adds the highest-frequency BEM added mass
+                # (raft_model.py:697: A_BEM[:,:,-1])
+                A_bem, _, _ = interp_to_grid(self.bem_coeffs, self.w)
+                A_support = A_support + A_bem[-1]
+            p["A support structure"] = A_support
             p["C support structure"] = st.C_struc_sub + st.C_hydro \
                 + self.C_moor0
 
@@ -640,6 +776,104 @@ class Model:
             )
         return self.results
 
+    # ------------------------------------------------------------------
+    # HAMS/OpenFAST interop
+    # ------------------------------------------------------------------
+
+    def preprocess_hams(self, dw=0, wMax=0, dz=0, da=0, mesh_dir="BEM",
+                        headings=(0.0,), nw_bem=24):
+        """Generate the HAMS working tree (Input/HullMesh.pnl,
+        ControlFile.in, Hydrostatic.in) and WAMIT-format ``.1``/``.3``/
+        ``.hst`` output files for OpenFAST handoff (reference
+        raft/raft_model.py:769-790 preprocess_HAMS + raft_fowt.py:349-391),
+        with the HAMS run replaced by the native panel solver
+        (:meth:`run_bem`, on the Model's device).
+
+        The tree is drop-in compatible: point an external HAMS build at
+        ``mesh_dir`` to recompute with higher fidelity, then load its
+        output with :meth:`import_bem`.
+        """
+        from raft_tpu_torch.hams_io import (
+            create_hams_dirs,
+            write_control_file,
+            write_hydrostatic_file,
+        )
+        from raft_tpu_torch.mesh import dedupe_nodes, mesh_platform, write_pnl
+
+        platform = self.design["platform"]
+        dz = dz or get_from_dict(platform, "dz_BEM", default=3.0)
+        da = da or get_from_dict(platform, "da_BEM", default=2.0)
+
+        panels = mesh_platform(self.members, dz_max=dz, da_max=da)
+        if len(panels) == 0:
+            raise RuntimeError(
+                "preprocess_hams: no members have potMod=True"
+            )
+        create_hams_dirs(mesh_dir)
+        nodes, conn = dedupe_nodes(panels)
+        write_pnl(
+            os.path.join(mesh_dir, "Input", "HullMesh.pnl"), nodes, conn
+        )
+        if self.statics is None:
+            self.analyze_unloaded()
+        write_hydrostatic_file(mesh_dir, k_hydro=self.statics.C_hydro)
+        # solve, then write a control file describing the grid actually
+        # solved and emitted into Buoy.1/.3.  Default: the same run_bem
+        # grid the analyze_cases(runPyHAMS=True) path uses; an explicit dw
+        # requests the reference's dw-spaced HAMS schedule (reference
+        # raft/raft_fowt.py:381-382).
+        if dw:
+            dw_hams = float(dw)
+            w_max = max(float(wMax), float(self.w[-1]))
+            n_sched = int(np.ceil(w_max / dw_hams))
+            w_sched = dw_hams * np.arange(1, n_sched + 1)
+            coeffs = self.run_bem(
+                headings=headings, dz_max=dz, da_max=da,
+                panels=panels, w_grid=w_sched,
+            )
+        else:
+            coeffs = self.run_bem(
+                headings=headings, nw_bem=nw_bem, dz_max=dz, da_max=da,
+                panels=panels,
+            )
+        wb = np.asarray(coeffs.w)
+        dwb = np.diff(wb)
+        note = None
+        if len(wb) > 1 and not np.allclose(dwb, dwb[0], rtol=1e-6):
+            # the solver clamped bins above the mesh-resolution cap, so
+            # the emitted grid is not uniform; the schedule below covers
+            # the uniform part and the note flags the deviation
+            note = (
+                f"frequencies above the mesh-resolution cap were clamped:"
+                f" Buoy.1/.3 contain {len(wb)} bins ending at"
+                f" {wb[-1]:.4f} rad/s"
+            )
+        dh = np.diff(np.asarray(headings, float))
+        if len(dh) > 1 and not np.allclose(dh, dh[0], atol=1e-9):
+            hnote = "heading set is non-uniform; see Buoy.3 for exact values"
+            note = f"{note}; {hnote}" if note else hnote
+        write_control_file(
+            mesh_dir, water_depth=self.depth,
+            num_freqs=-len(wb),
+            min_freq=float(wb[0]),
+            d_freq=float(dwb[0]) if len(wb) > 1 else 0.0,
+            num_headings=len(headings),
+            min_heading=float(headings[0]),
+            d_heading=(float(headings[1] - headings[0])
+                       if len(headings) > 1 else 0.0),
+            note=note,
+        )
+        out = os.path.join(mesh_dir, "Output", "Wamit_format")
+        write_wamit_1(os.path.join(out, "Buoy.1"), coeffs,
+                      rho=self.rho_water)
+        write_wamit_3(os.path.join(out, "Buoy.3"), coeffs,
+                      rho=self.rho_water, g=self.g)
+        write_wamit_hst(os.path.join(out, "Buoy.hst"),
+                        self.statics.C_hydro, rho=self.rho_water, g=self.g)
+        return mesh_dir
+
+    preprocess_HAMS = preprocess_hams
+
     # camelCase aliases for reference-API compatibility
     analyzeUnloaded = analyze_unloaded
     analyzeCases = analyze_cases
@@ -652,13 +886,14 @@ def run_raft(input_file, plot=0, ballast=0, run_native_bem=False, **kwargs):
     (reference raft/raft_model.py:1092-1135)."""
     if plot:
         raise _not_ported("plotting", 11)
-    if run_native_bem:
-        raise _not_ported("the native BEM solver", 9)
     design = load_design(input_file)
     print(" --- making model ---")
     model = Model(design, **kwargs)
     print(" --- analyzing unloaded ---")
     model.analyze_unloaded(ballast=ballast)
+    if run_native_bem:
+        print(" --- running native BEM solver ---")
+        model.run_bem()
     print(" --- analyzing cases ---")
     model.analyze_cases()
     model.solve_eigen()

@@ -31,9 +31,10 @@ setup(
     ),
     packages=["raft_tpu", "raft_tpu.io", "raft_tpu.utils",
               "raft_tpu_torch", "raft_tpu_torch.io", "raft_tpu_torch.utils",
-              "raft_tpu_torch.kernels"],
+              "raft_tpu_torch.kernels", "raft_tpu_torch.serve"],
     package_data={"raft_tpu": ["native/*.cpp", "native/Makefile"],
-                  "raft_tpu_torch": ["csrc/*.cu"]},
+                  "raft_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                     "data/*.npz"]},
     python_requires=">=3.9",
     # numpy>=2.0: np.trapezoid (raft_tpu/fatigue.py, tests)
     install_requires=["numpy>=2.0", "scipy", "pyyaml", "jax"],

@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card — Gauss–Jordan and the fused fixed-point
-block — (marked ``cuda``; each test skips with its reason where there is
-no card).  This file imports neither jax nor raft_tpu, so it runs on a
+"""The CUDA kernels on the card — Gauss–Jordan, the fused fixed-point
+block, and the BEM solve's pivot-tile inverse and matrix products —
+(marked ``cuda``; each test skips with its reason where there is no
+card).  This file imports neither jax nor raft_tpu, so it runs on a
 machine with only the port's dependencies:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -11,10 +12,13 @@ import pytest
 import torch
 
 import raft_tpu_torch
+from raft_tpu_torch import bem_solver as tb
+from raft_tpu_torch import mesh as tm
 from raft_tpu_torch.convert import case_args_from_numpy
 from raft_tpu_torch.designs import deep_spar
 from raft_tpu_torch.dynamics import gauss_solve
 from raft_tpu_torch.geometry import HydroNodes
+from raft_tpu_torch.kernels import bem_gj as bg
 from raft_tpu_torch.kernels import fused_block as fk
 from raft_tpu_torch.kernels import gj_solve as gk
 from raft_tpu_torch.serve.buckets import SlotPhysics
@@ -159,3 +163,110 @@ def test_fused_kernel_refuses_shapes_it_was_not_built_for(cuda):
                        torch.zeros(L, W, 6, **f), state,
                        w=torch.ones(W, **f), dw=1.0, rho=1025.0, relax=0.8,
                        nIter=15, K=2)
+
+
+def _tile(n, swaps, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, n)) + n * np.eye(n)
+    if swaps:
+        A[np.arange(n), np.arange(n)] = 0.0
+        A += np.roll(np.eye(n), 1, axis=0) * n
+    return A
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("swaps", [False, True], ids=["plain", "swaps"])
+@pytest.mark.parametrize("n", [1, 8, 64, 512])
+def test_tile_inv_kernel_matches_plain_version(cuda, dtype, n, swaps):
+    """Same bits as the plain version (no FMA on either side), on a
+    strided block of a larger matrix as gj_stage passes it."""
+    big = torch.zeros(n + 3, 2 * n + 5, dtype=torch.float64)
+    big[1:n + 1, 2:n + 2] = torch.as_tensor(_tile(n, swaps, n))
+    A = big.to(cuda, dtype)[1:n + 1, 2:n + 2]
+    before = bg.launches["tile_inv"]
+    inv = bg.tile_inv(A)
+    ref = bg.tile_inv_reference(A)
+    torch.cuda.synchronize()
+    assert bg.launches["tile_inv"] == before + 1
+    assert torch.equal(inv, ref)
+
+
+def _mm_bar(L, R):
+    """The accumulated rounding of a K-term sum: K eps max(|L| @ |R|)."""
+    K = L.shape[1]
+    return K * torch.finfo(L.dtype).eps * (L.abs() @ R.abs()).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(512, 512, 5120), (512, 512, 7),
+                                   (5120, 512, 5120), (5120, 512, 7),
+                                   (37, 19, 3)])
+def test_mm_kernels_match_plain_version(cuda, dtype, M, K, N):
+    """The four products of one elimination step at 2N = 5120 and a
+    ragged small one."""
+    g = torch.Generator().manual_seed(M + K + N)
+    L, R, X = (torch.randn(*s, generator=g, dtype=torch.float64).to(
+        cuda, dtype) for s in ((M, K), (K, N), (M, N)))
+    before = dict(bg.launches)
+    out = bg.mm(L, R)
+    sub = bg.mm_sub(X, L, R)
+    torch.cuda.synchronize()
+    assert bg.launches["mm"] == before["mm"] + 1
+    assert bg.launches["mm_sub"] == before["mm_sub"] + 1
+    bar = _mm_bar(L, R)
+    assert (out - bg.mm_reference(L, R)).abs().max().item() <= bar
+    assert (sub - bg.mm_sub_reference(X, L, R)).abs().max().item() <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-4)],
+                         ids=["f64", "f32"])
+def test_blocked_gj_on_the_card_solves(cuda, dtype, bar):
+    """n = 1536, m = 9 through the kernels: 3 tile inverses, 6 products
+    and 6 updates, and the solution of the dense solve."""
+    rng = np.random.default_rng(0)
+    n, m = 1536, 9
+    A = rng.normal(size=(n, n)) * 0.05
+    A[np.arange(n), np.arange(n)] -= 2.0
+    b = rng.normal(size=(n, m))
+    x_ref = np.linalg.solve(A, b)
+    bg.reset_launches()
+    x = tb._blocked_gj(torch.as_tensor(A, dtype=dtype, device=cuda),
+                       torch.as_tensor(b, dtype=dtype, device=cuda))
+    assert bg.launches == {"tile_inv": 3, "mm": 6, "mm_sub": 6}
+    err = np.abs(x.double().cpu().numpy() - x_ref).max()
+    assert err <= bar * np.abs(x_ref).max()
+
+
+def test_bem_kernels_raise_when_they_cannot_build(cuda, monkeypatch,
+                                                  tmp_path):
+    """On the card a failed build raises; it never falls back to the plain
+    versions."""
+    monkeypatch.setattr(bg, "_libs", {})
+    monkeypatch.setattr(bg, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(bg, "nvcc", lambda: str(tmp_path / "no-nvcc"))
+    before = dict(bg.launches)
+    A = torch.eye(8, dtype=torch.float64, device=cuda)
+    for call in (lambda: bg.tile_inv(A), lambda: bg.mm(A, A),
+                 lambda: bg.mm_sub(A, A, A)):
+        with pytest.raises(RuntimeError):
+            call()
+    assert bg.launches == before
+
+
+def test_solve_bem_card_form_on_the_card(cuda, monkeypatch):
+    """A 508-panel spar (padded to 512, so 2N = 1024: two pivot blocks
+    with the threshold lowered) solved on the card through the kernels,
+    against the same card form on the CPU (A and X within 2e-4 of their
+    largest value, B within 1e-3)."""
+    monkeypatch.setattr(tb, "BLOCKED_GJ_MIN_PANELS", 256)
+    panels = tm.clip_waterplane(tm.mesh_member(
+        [0, 108, 116, 130], [9.4, 9.4, 6.5, 6.5], np.array([0, 0, -120.0]),
+        np.array([0, 0, 10.0]), 4.0, 3.0))
+    bg.reset_launches()
+    out = tb.solve_bem(panels, [0.5, 0.9], depth=200.0)
+    assert bg.launches == {"tile_inv": 4, "mm": 8, "mm_sub": 8}
+    ref = tb.solve_bem(panels, [0.5, 0.9], depth=200.0, backend="cuda",
+                       device="cpu")
+    for k, bar in (("A", 2e-4), ("B", 1e-3), ("X", 2e-4)):
+        assert np.abs(out[k] - ref[k]).max() <= bar * np.abs(ref[k]).max()

@@ -324,8 +324,6 @@ def _row_block(N, Q, cheb):
         for rb in (512, 256, 128, 64, 32):
             if N % rb == 0 and rb * N * Q <= _ROW_BLOCK_POINTS:
                 return rb
-        if N % 32 == 0:
-            return 32
     return N
 
 

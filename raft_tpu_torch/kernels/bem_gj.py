@@ -43,7 +43,6 @@ SOURCES = (TILE_INV_SOURCE, MM_SOURCE)
 _HEADERS = {TILE_INV_SOURCE: (os.path.join(_build.CSRC, "gj_elim.cuh"),),
             MM_SOURCE: ()}
 MAX_TILE = 1024
-BLOCK = 512
 
 launches = {"tile_inv": 0, "mm": 0, "mm_sub": 0}
 _libs = {}
@@ -186,7 +185,7 @@ def mm(L, R):
     tensors the kernel."""
     _check_mm("mm", L, R)
     if L.device.type == "cpu":
-        return L @ R
+        return mm_reference(L, R)
     M, K = L.shape
     N = R.shape[1]
     fn = _kernel(MM_SOURCE, "mm", L.dtype)
@@ -203,7 +202,7 @@ def mm_sub(X, L, R):
     tensors take the plain version, CUDA tensors the kernel."""
     _check_mm("mm_sub", L, R, X)
     if L.device.type == "cpu":
-        return X - L @ R
+        return mm_sub_reference(X, L, R)
     M, K = L.shape
     N = R.shape[1]
     fn = _kernel(MM_SOURCE, "mm_sub", L.dtype)
@@ -227,7 +226,7 @@ def mm_sub_reference(X, L, R):
 
 # ----------------------------------------------------------- blocked stage
 
-def gj_stage(A, b, kb0, nblk, block=BLOCK):
+def gj_stage(A, b, kb0, nblk, block=512):
     """``nblk`` consecutive steps, from block row ``kb0``, of the blocked
     Gauss–Jordan elimination of ``(A [n, n], b [n, m])``, ``n`` a multiple
     of ``block``.  Each step inverts the pivot tile, scales the pivot

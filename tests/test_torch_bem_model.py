@@ -6,10 +6,10 @@ the other; the HAMS tree of preprocess_hams; and the port's
 analyze_cases(runPyHAMS=True, meshDir=...) and
 run_raft(run_native_bem=True) end to end.
 
-raft_tpu runs single-device (n_devices=1): its sharded BEM path fails on
-this install (ROADMAP.md queue 3).  Bars: the coefficients within
-raft_tpu's cross-path bars (A and X 2e-4 of their largest value, B
-1e-3); Xi within 1e-8 (tests/test_parity.py's bar) when both packages
+raft_tpu runs single-device (n_devices=1): its sharded BEM path fails at
+finite depth with jax 0.9.0 (ROADMAP.md queue 3).  Bars: the coefficients
+within raft_tpu's cross-path bars (A and X 2e-4 of their largest value,
+B 1e-3); Xi within 1e-8 (tests/test_parity.py's bar) when both packages
 take the same coefficients."""
 
 import os

@@ -48,15 +48,17 @@ Phases (each prints a line; any failure raises and exits non-zero):
 12. the matrix-product kernels ``mm`` and ``mm_sub`` against their plain
     versions at the four products of one elimination step at 2N = 5120
     (Dinv @ D, Dinv @ Db, A - C @ Arow, b - C @ brow), float32 and
-    float64; kernel, plain, cuBLAS (``torch.matmul`` /
-    ``torch.addmm``, the yardstick) times and the bound;
+    float64; kernel, plain, cuBLAS (the yardstick: for ``mm`` the plain
+    ``L @ R`` itself, for ``mm_sub`` ``torch.addmm``) times and the bound;
 13. the native BEM solve: the flagship with every member potential-flow
     at its default panel sizes (2470 panels padded to 2560, so the real
     block system has 5120 rows, 10 pivot blocks of 512) through
     ``Model(design).run_bem()`` on the card, with 10 / 20 / 20 launches
     of tile_inv / mm / mm_sub per solved frequency, timed as host (mesh,
     Rankine) and device (assembly, solve) time; one frequency held
-    against the same card form on the CPU;
+    against the same card form on the CPU; the wave term's Chebyshev
+    evaluation at one assembly row block of that mesh in the port's
+    gathered form and raft_tpu's masked form, held together and timed;
 14. the main path with those coefficients: ``analyze_cases`` in float64
     on the card, every case converged, Xi within 1e-8 of the CPU run
     with the same coefficients.
@@ -76,10 +78,12 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# non-tensor-core FP64 / FP32 rates
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the FP64
+# rate with the FP64 tensor cores (DMMA; 34 TFLOP/s without them) and the
+# FP32 rate outside the tensor cores (FP32 work has no IEEE tensor-core
+# path: TF32 rounds the operands)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
 # GJ solves of one recovery-ladder pass (raft_tpu_torch/dynamics.py):
 # tier 0 solve + 1 refinement, tier 1's 2 refinements, the condition
 # estimate, the Tikhonov solve
@@ -148,7 +152,7 @@ def build_phase(kernel_modules):
     n = 0
     for km, job in jobs:
         km.build(verbose=True, job=job)
-        for src in getattr(km, "SOURCES", (getattr(km, "SOURCE", None),)):
+        for src in km.SOURCES:
             n += 1
             print(f"phase build: {src} -> sm_90a, done "
                   f"{time.perf_counter() - t0:.2f} s after the start",
@@ -570,10 +574,13 @@ MM_SHAPES = (("Dinv@D", "mm", 512, 512, 5120),
 
 def mm_phase(bg, dtype):
     """Each product against its plain version (``L @ R``, ``X - L @ R``)
-    within the accumulated rounding K eps max(|L| @ |R|); cuBLAS
-    (``torch.matmul``, ``torch.addmm(X, L, R, alpha=-1)``) as the
-    yardstick.  Returns the numbers of each shape, with the path's two
-    kernels' entries at Dinv@D (mm) and the A-update (mm_sub)."""
+    within the accumulated rounding K eps max(|L| @ |R|); cuBLAS as the
+    yardstick.  For ``mm`` the plain version on the card is the library
+    call itself (``L @ R`` is ``torch.matmul``), timed once and recorded
+    as both; for ``mm_sub`` the library call is the one fused cuBLAS call
+    ``torch.addmm(X, L, R, alpha=-1)``.  Returns the numbers of each
+    shape, with the path's two kernels' entries at Dinv@D (mm) and the
+    A-update (mm_sub)."""
     g = torch.Generator(device="cuda").manual_seed(5)
     item = torch.finfo(dtype).bits // 8
     out = {}
@@ -584,7 +591,7 @@ def mm_phase(bg, dtype):
         if kernel == "mm":
             run = lambda: bg.mm(L, R)                       # noqa: E731
             plain = lambda: bg.mm_reference(L, R)           # noqa: E731
-            library = lambda: torch.matmul(L, R)            # noqa: E731
+            library = None
             nbytes = (M * K + K * N + M * N) * item
         else:
             run = lambda: bg.mm_sub(X, L, R)                # noqa: E731
@@ -600,7 +607,7 @@ def mm_phase(bg, dtype):
         iters = 10 if N > 7 else 50
         ms = cuda_ms(run, iters)
         plain_ms = cuda_ms(plain, iters)
-        library_ms = cuda_ms(library, iters)
+        library_ms = plain_ms if library is None else cuda_ms(library, iters)
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         print(f"phase {kernel} kernel {dtype_name(dtype)} {name}: "
               f"[{M},{K}]x[{K},{N}] max_abs_err={err:.3e} (bar {tol:.3e}) "
@@ -620,6 +627,45 @@ def bem_design(rt):
     design = flagship(rt)
     design["platform"]["potModMaster"] = 2
     return design
+
+
+def cheb_forms_phase(tb, panels, lids, omega, g):
+    """The wave term's Chebyshev evaluation at the first assembly row block
+    of the BEM mesh at ``omega``, in the port's gathered form (each pair on
+    its own region's patch, a device-to-host sync per region) and in
+    raft_tpu's masked form (all six patches at every pair, no sync): the
+    two agree, and both are timed."""
+    from raft_tpu_torch import greens
+
+    pa = tb.pad_panel_arrays(tb._concat_panel_arrays(
+        tb.panel_arrays(panels), tb.panel_arrays(lids)))
+    N, Q = pa.qpts.shape[:2]
+    rb = tb._row_block(N, Q, True)
+    x = torch.as_tensor(pa.cen[:rb], dtype=torch.float32, device="cuda")
+    y = torch.as_tensor(pa.qpts, dtype=torch.float32, device="cuda")
+    nu = omega * omega / g
+    Rh = torch.sqrt((x[:, None, None, 0] - y[None, :, :, 0]) ** 2
+                    + (x[:, None, None, 1] - y[None, :, :, 1]) ** 2)
+    a = nu * Rh
+    b = torch.clamp(nu * (x[:, None, None, 2] + y[None, :, :, 2]),
+                    max=-1e-9)
+    C = {k: torch.as_tensor(v, device="cuda")
+         for k, v in greens.load_cheb_tables().items()}
+    gathered = greens.eval_F_F1_cheb(a, b, C)
+    masked = greens.eval_F_F1_cheb(a, b, C, masked=True)
+    gap = max(((m - g_).abs().max() / g_.abs().max()).item()
+              for m, g_ in zip(masked, gathered))
+    if not gap <= 5e-6:
+        raise AssertionError(f"Chebyshev forms differ by {gap:.3e}")
+    ms = cuda_ms(lambda: greens.eval_F_F1_cheb(a, b, C), 5, 1)
+    masked_ms = cuda_ms(lambda: greens.eval_F_F1_cheb(a, b, C, masked=True),
+                        5, 1)
+    blocks = N // rb
+    print(f"phase bem cheb forms: w={omega:.4f} block=[{rb},{N},{Q}] "
+          f"({a.numel()} pairs) blocks_per_frequency={blocks} "
+          f"gathered_ms={ms:.3f} masked_ms={masked_ms:.3f} per frequency "
+          f"gathered_ms={blocks * ms:.1f} masked_ms={blocks * masked_ms:.1f} "
+          f"max_rel_gap={gap:.2e}", flush=True)
 
 
 def bem_phase(rt, bg, gk, fk, Timers, ti, mm):
@@ -661,11 +707,11 @@ def bem_phase(rt, bg, gk, fk, Timers, ti, mm):
     i = nf // 2
     panels = mesh.mesh_platform([m for m in model.members if m.potMod],
                                 dz_max=3.0, da_max=2.0)
+    lids = mesh.lid_panels_from_mesh(panels)
     t1 = time.perf_counter()
     ref = tb.solve_bem(panels, [coeffs.w[i]],
                        betas=np.deg2rad(coeffs.headings), rho=model.rho_water,
-                       g=model.g, depth=model.depth,
-                       lid_panels=mesh.lid_panels_from_mesh(panels),
+                       g=model.g, depth=model.depth, lid_panels=lids,
                        backend="cuda", device="cpu")
     cpu_s = time.perf_counter() - t1
     gaps = {}
@@ -687,6 +733,7 @@ def bem_phase(rt, bg, gk, fk, Timers, ti, mm):
           f"cpu_check w={coeffs.w[i]:.4f} gap_A={gaps['A']:.2e} gap_B="
           f"{gaps['B']:.2e} gap_X={gaps['X']:.2e} cpu_check_s={cpu_s:.1f}",
           flush=True)
+    cheb_forms_phase(tb, panels, lids, coeffs.w[i], model.g)
     return model, launches
 
 

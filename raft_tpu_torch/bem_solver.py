@@ -17,7 +17,7 @@ Two forms of the solve, chosen by ``backend``, and a device, chosen by
 
   * ``backend="cuda"`` — the card form (the JAX package's ``"tpu"``
     form): the mesh is padded to a multiple of 256 panels, the wave term
-    is the gather-free Chebyshev evaluation assembled in row blocks, and
+    is the table-free Chebyshev evaluation assembled in row blocks, and
     the dense complex system is solved as the real 2N x 2N block system,
     by the blocked Gauss–Jordan elimination of
     raft_tpu_torch/kernels/bem_gj.py above ``BLOCKED_GJ_MIN_PANELS``
@@ -254,14 +254,6 @@ def _radiation_normals(pa):
     return np.concatenate([pa.nrm.T, rxn.T], axis=0)  # [6, N]
 
 
-def _gj_stage(A, b, kb0, nblk, block=GJ_BLOCK):
-    """``nblk`` consecutive steps (from block row ``kb0``) of the blocked
-    Gauss-Jordan elimination of ``(A, b)`` — always through
-    :func:`raft_tpu_torch.kernels.bem_gj.gj_stage` (the hand-written
-    kernels on the card, their plain versions on the CPU)."""
-    return gj_stage(A, b, kb0, nblk, block=block)
-
-
 def _blocked_gj(A, b, block=GJ_BLOCK):
     """Solve ``A x = b`` for a well-conditioned dense real system by
     blocked Gauss-Jordan elimination: per-step pivot-tile inversion and
@@ -271,8 +263,11 @@ def _blocked_gj(A, b, block=GJ_BLOCK):
     uniformly invertible at practical mesh densities).
 
     A : [n, n] with n a multiple of ``block``; b : [n, m].  Returns x.
+    Every step goes through :func:`raft_tpu_torch.kernels.bem_gj.gj_stage`
+    (the hand-written kernels on the card, their plain versions on the
+    CPU).
     """
-    _, x = _gj_stage(A, b, 0, A.shape[0] // block, block=block)
+    _, x = gj_stage(A, b, 0, A.shape[0] // block, block=block)
     return x
 
 

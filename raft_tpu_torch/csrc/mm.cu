@@ -27,11 +27,13 @@
 // out-of-range operands load as zero and out-of-range outputs are not
 // written.
 //
-// Bound on this card (H100 SXM: 67 TFLOP/s FP32 and 34 TFLOP/s FP64
-// outside the tensor cores, 3.35 TB/s).  The A-update at 2N = 5120 does
-// 2.7e10 operations on about 0.23 GB: 0.40 ms, set by operations; Dinv @ D
-// 2.7e9 operations: 0.040 ms; the 7-column products are set by the bytes
-// of their [n, 512] operand (a few microseconds).  Reaching the FP32 peak
+// Bound on this card (H100 SXM: 67 TFLOP/s FP32 outside the tensor cores,
+// 67 TFLOP/s FP64 with the FP64 tensor cores, 3.35 TB/s).  The A-update
+// at 2N = 5120 does 2.7e10 operations on about 0.23 GB: 0.40 ms, set by
+// operations, in either precision; Dinv @ D 2.7e9 operations: 0.040 ms;
+// the 7-column products are set by the bytes of their [n, 512] operand (a
+// few microseconds).  This SIMT kernel cannot reach the FP64 bound: it
+// runs on the FP64 units alone (34 TFLOP/s), as TF32 is ruled out in FP32.  Reaching the FP32 peak
 // without tensor cores needs double-buffered (cp.async) tiles and more
 // outputs per thread than this first version has; docs/torch_port.md has
 // the measured share.

@@ -32,10 +32,11 @@
 // grid synchronisation; a launch per step costs a few microseconds, the
 // same order as a grid barrier plus the owner block's argmax.
 //
-// Bound on this card (H100 SXM: 67 TFLOP/s FP32, 34 TFLOP/s FP64 outside
-// the tensor cores, 3.35 TB/s).  An inverse needs 2 n^3 operations: at
-// n = 512, 2.7e8, so 4.0 us in f32 and 7.9 us in f64; the elimination as
-// written on [A | I] does twice that.  The bytes (A read, the inverse
+// Bound on this card (H100 SXM: 67 TFLOP/s FP32 outside the tensor cores,
+// 67 TFLOP/s FP64 with the FP64 tensor cores, 3.35 TB/s).  An inverse
+// needs 2 n^3 operations: at n = 512, 2.7e8, so 4.0 us in f32 and in
+// f64 (7.9 us on the FP64 units alone, which this kernel uses); the
+// elimination as written on [A | I] does twice that.  The bytes (A read, the inverse
 // written: 2 MB in f32) take 0.6 us.  So the bound is operations, and
 // this design does not approach it: n dependent launches of a few
 // microseconds each put it near n x (launch + argmax latency).  It keeps

@@ -15,8 +15,8 @@ forms:
  * bilinear (a, log(-b)) tables built once on the host (interp_F_F1) —
    the CPU form of the solve;
  * an exact special-function decomposition with per-region 2D Chebyshev
-   remainder fits (eval_F_F1_cheb) — the card form: no gathers, and the
-   fitted form is ~4 orders of magnitude more accurate than the table in
+   remainder fits (eval_F_F1_cheb) — the card form: no table lookups, and
+   the fitted form is ~4 orders of magnitude more accurate than the table in
    the near-surface corners (see the section comment further down).
 
 Key identity used for tabulation:
@@ -406,7 +406,7 @@ def _combine_wave_outputs(nu, a, b, F, F1):
     return Gw, dGw_dR, dGw_dz
 
 
-# ----------------------------------------------- gather-free Chebyshev ----
+# ------------------------------------------ table-free Chebyshev form ----
 #
 # Table gathers dominate the interpolation's assembly cost at production
 # mesh sizes, so the kernel is re-expressed as exact special-function
@@ -536,25 +536,10 @@ def _cheb_basis(x, n):
     return T
 
 
-def eval_F_F1_cheb(a, b, C):
-    """Gather-free evaluation of F, F1 at (a >= 0, b <= 0), any shape.
-    ``C`` is the load_cheb_tables() dict as tensors on the device of
-    ``a``.  Each in-domain element is evaluated on its own region's patch
-    (the regions partition the domain; the JAX package evaluates all six
-    branch-free and selects by the same masks, with the same values); the
-    out-of-domain large-argument asymptote matches interp_F_F1's.  The
-    inner contractions are basis-matrix products
-    ([nb+1, na+1] @ [na+1, E] then a column-dot), so callers flatten to a
-    modest [E] block (the solver's row-blocked assembly does)."""
-    shape = a.shape
-    a = a.reshape(-1)
-    b = b.reshape(-1)
-    dt = a.dtype
-    a_s = torch.clamp(a, min=_A_MIN_FIT)
-    s = torch.sqrt(a * a + b * b)
-    s_s = torch.clamp(s, min=1e-12)
-
-    out = (a > 100.0) | (b < -40.0)
+def _cheb_regions(a, b, s):
+    """The six patch regions as (name, mask, coords): the masks partition
+    the domain (out-of-domain elements fall in one of them too), and
+    ``coords(a, b, s)`` maps an element to its patch's [-1, 1]^2."""
     in_D = s <= 8.0
     in_B = (~in_D) & (a <= 30.0) & (b <= -4.0)
     in_C = (~in_D) & (a <= 30.0) & (b > -4.0)
@@ -575,7 +560,7 @@ def eval_F_F1_cheb(a, b, C):
     def A_x(a):
         return (a - 30.0) / 35.0 - 1.0
 
-    regions = (
+    return (
         ("D", in_D, D_coords),
         ("C", in_C, C_coords),
         ("B", in_B, lambda a, b, s: (a / 15.0 - 1.0,
@@ -586,18 +571,63 @@ def eval_F_F1_cheb(a, b, C):
         ("A1", in_A1, lambda a, b, s: (
             A_x(a), 4.0 * torch.clamp(b, max=0.0) + 1.0)),
     )
-    tF = torch.zeros_like(a)
-    tF1 = torch.zeros_like(a)
-    for name, mask, coords in regions:
-        sel = torch.nonzero(mask & ~out).squeeze(1)
-        if sel.numel() == 0:
-            continue
-        na, nb = _PATCH_DEGREES[name]
-        xa, xb = coords(a[sel], b[sel], s[sel])
-        Ta = _cheb_basis(torch.clamp(xa, -1.0, 1.0), na)   # [na+1, E]
-        Tb = _cheb_basis(torch.clamp(xb, -1.0, 1.0), nb)   # [nb+1, E]
-        tF[sel] = torch.sum((C[f"{name}_F"].to(dt).T @ Ta) * Tb, dim=0)
-        tF1[sel] = torch.sum((C[f"{name}_F1"].to(dt).T @ Ta) * Tb, dim=0)
+
+
+def _cheb_patch(name, xa, xb, C):
+    """The remainders (tF, tF1) of patch ``name`` at its coordinates
+    ``xa``, ``xb`` [E]: basis-matrix products [nb+1, na+1] @ [na+1, E],
+    then a column-dot with the [nb+1, E] basis."""
+    na, nb = _PATCH_DEGREES[name]
+    Ta = _cheb_basis(torch.clamp(xa, -1.0, 1.0), na)   # [na+1, E]
+    Tb = _cheb_basis(torch.clamp(xb, -1.0, 1.0), nb)   # [nb+1, E]
+    return tuple(torch.sum((C[f"{name}_{tag}"].to(xa.dtype).T @ Ta) * Tb,
+                           dim=0) for tag in ("F", "F1"))
+
+
+def _cheb_asymptote(a_s, b, s_s, eb):
+    """The large-argument asymptote of (F, F1), as interp_F_F1's."""
+    return (-_PI * eb * bessel.y0(a_s) - 1.0 / s_s + b / s_s**3,
+            -_PI * eb * bessel.y1(a_s) - (1.0 + b / s_s) / a_s)
+
+
+def eval_F_F1_cheb(a, b, C, masked=False):
+    """F, F1 at (a >= 0, b <= 0), any shape, without table lookups: exact
+    special-function terms plus the per-region Chebyshev remainders.
+    ``C`` is the load_cheb_tables() dict as tensors on the device of
+    ``a``; out of the fitted domain the large-argument asymptote (as
+    interp_F_F1's) takes over.  Callers flatten to a modest [E] block
+    (the solver's row-blocked assembly does).
+
+    By default each in-domain element is gathered into its own region and
+    evaluated on that patch alone (``torch.nonzero`` per region: seven
+    device-to-host syncs per call on the card).  ``masked=True`` is
+    raft_tpu's branch-free form: all six patches at every element, then
+    selected by the region masks (no syncs, six times the patch work).
+    The two give the same values; ``chip_smoke.py`` times both on the
+    card at the flagship's assembly block."""
+    shape = a.shape
+    a = a.reshape(-1)
+    b = b.reshape(-1)
+    a_s = torch.clamp(a, min=_A_MIN_FIT)
+    s = torch.sqrt(a * a + b * b)
+    s_s = torch.clamp(s, min=1e-12)
+    out = (a > 100.0) | (b < -40.0)
+
+    regions = _cheb_regions(a, b, s)
+    if masked:
+        tF = tF1 = None
+        for name, mask, coords in regions:
+            v, v1 = _cheb_patch(name, *coords(a, b, s), C)
+            tF = v if tF is None else torch.where(mask, v, tF)
+            tF1 = v1 if tF1 is None else torch.where(mask, v1, tF1)
+    else:
+        tF = torch.zeros_like(a)
+        tF1 = torch.zeros_like(a)
+        for name, mask, coords in regions:
+            sel = torch.nonzero(mask & ~out).squeeze(1)
+            if sel.numel():
+                tF[sel], tF1[sel] = _cheb_patch(
+                    name, *coords(a[sel], b[sel], s[sel]), C)
 
     # reconstruction from the starred decomposition
     eb = torch.exp(torch.clamp(b, min=-80.0))
@@ -614,18 +644,22 @@ def eval_F_F1_cheb(a, b, C):
     F1 = (tF1 + eb * (a / smb)
           - eb * ((_PI / 2) * (H1 + Y1sm) + lga * J1 - 1.0))
 
-    # out-of-domain large-argument asymptote (same as interp_F_F1)
-    sel = torch.nonzero(out).squeeze(1)
-    if sel.numel():
-        ao, bo, so, eo = a_s[sel], b[sel], s_s[sel], eb[sel]
-        F[sel] = -_PI * eo * bessel.y0(ao) - 1.0 / so + bo / so**3
-        F1[sel] = -_PI * eo * bessel.y1(ao) - (1.0 + bo / so) / ao
+    if masked:
+        Fa, F1a = _cheb_asymptote(a_s, b, s_s, eb)
+        F = torch.where(out, Fa, F)
+        F1 = torch.where(out, F1a, F1)
+    else:
+        sel = torch.nonzero(out).squeeze(1)
+        if sel.numel():
+            F[sel], F1[sel] = _cheb_asymptote(a_s[sel], b[sel], s_s[sel],
+                                              eb[sel])
     return F.reshape(shape), F1.reshape(shape)
 
 
 def wave_term_cheb(nu, R, zz, C):
     """Gw and derivatives like :func:`wave_term`, but through the
-    gather-free Chebyshev kernel evaluation (the card form's assembly)."""
+    Chebyshev evaluation of :func:`eval_F_F1_cheb`, free of table lookups
+    (the card form's assembly)."""
     a = nu * R
     b = torch.clamp(nu * zz, max=-1e-9)
     F, F1 = eval_F_F1_cheb(a, b, C)

@@ -145,12 +145,20 @@ def tile_inv(A):
 
 def tile_inv_reference(A):
     """The plain PyTorch version of :func:`tile_inv`: n Gauss–Jordan steps
-    on ``[A | I]`` with the arithmetic of ``kernels/gj_solve.py``'s
-    ``_gj_step`` (pivot by ``torch.argmax`` of the column's magnitudes,
-    NaN largest and first index on ties; IEEE division; the update rounded
-    as a product and then a difference), returning the right half.  Step
-    i leaves the columns left of i alone: they hold unit columns that no
-    later step reads, and the right half's bits do not depend on them."""
+    on ``[A | I]``, returning the right half.
+
+    It is ``kernels/gj_solve.py``'s plain elimination
+    (:func:`~raft_tpu_torch.kernels.gj_solve.gj_solve_reference`, which
+    only takes n <= 16) on ``[1, n, 2n]``, with the same arithmetic: pivot
+    by ``torch.argmax`` of the column's magnitudes, NaN largest and first
+    index on ties; IEEE division; the update rounded as a product and then
+    a difference.  It differs in one way, for speed on the CPU, where the
+    tests run it on 512-row tiles: step i updates only the columns from i
+    on and swaps rows in place, instead of masking every column with
+    ``torch.where`` (several times slower there).  The columns left of i
+    hold unit columns that no later step reads, so for finite input the
+    result has the same bits
+    (``tests/test_torch_bem_kernels.py`` pins that)."""
     n = A.shape[-1]
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
     M = torch.cat([A, eye], dim=1)

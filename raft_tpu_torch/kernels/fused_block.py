@@ -46,7 +46,7 @@ from raft_tpu_torch.kernels._build import BUILD_DIR, nvcc
 from raft_tpu_torch.kernels.gj_solve import gj_solve_reference
 from raft_tpu_torch.utils.frames import cross, translate_matrix_3to6
 
-SOURCE = os.path.join(_build.CSRC, "fused_block.cu")
+SOURCES = (os.path.join(_build.CSRC, "fused_block.cu"),)
 HEADERS = (os.path.join(_build.CSRC, "gj_elim.cuh"),)
 MAX_NODES = 512
 MAX_W = 256
@@ -81,7 +81,7 @@ def lane_iteration_flops(n_submerged, nw):
 
 def start_build(verbose=False):
     """Start compiling ``csrc/fused_block.cu`` (see :func:`build`)."""
-    return _build.start(SOURCE, HEADERS, BUILD_DIR, nvcc(), verbose)
+    return _build.start(SOURCES[0], HEADERS, BUILD_DIR, nvcc(), verbose)
 
 
 def build(verbose=False, job=None):

@@ -26,7 +26,7 @@ import torch
 from raft_tpu_torch.kernels import _build
 from raft_tpu_torch.kernels._build import BUILD_DIR, nvcc
 
-SOURCE = os.path.join(_build.CSRC, "gj_solve.cu")
+SOURCES = (os.path.join(_build.CSRC, "gj_solve.cu"),)
 HEADERS = (os.path.join(_build.CSRC, "gj_elim.cuh"),)
 MAX_N = 16
 MAX_M = 32
@@ -37,7 +37,7 @@ _lib = None
 
 def start_build(verbose=False):
     """Start compiling ``csrc/gj_solve.cu`` (see :func:`build`)."""
-    return _build.start(SOURCE, HEADERS, BUILD_DIR, nvcc(), verbose)
+    return _build.start(SOURCES[0], HEADERS, BUILD_DIR, nvcc(), verbose)
 
 
 def build(verbose=False, job=None):

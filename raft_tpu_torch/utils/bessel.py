@@ -96,7 +96,7 @@ def y1(x):
 
 
 # ---- Struve functions and smooth Bessel parts for the BEM wave kernel ----
-# (raft_tpu_torch/greens.py's gather-free Chebyshev evaluation
+# (raft_tpu_torch/greens.py's table-free Chebyshev evaluation
 # reconstructs the kernel from its exact oscillatory part, which involves
 # H0, H1 and the entire "smooth" remainders of Y0, Y1 after their
 # log/pole terms)

@@ -23,6 +23,7 @@ from raft_tpu.pallas_kernels import (
 )
 from raft_tpu_torch import bem_solver as tb
 from raft_tpu_torch.kernels import bem_gj as bg
+from raft_tpu_torch.kernels.gj_solve import gj_solve_reference
 
 rng = np.random.default_rng(23)
 MIRROR, LAPACK = 1e-12, 1e-10
@@ -60,6 +61,16 @@ def test_tile_inv_parity_with_pallas_and_lapack(n, swaps):
     inv = bg.tile_inv(torch.as_tensor(A)).numpy()
     assert _rel(inv, tile_inv_pallas(jnp.asarray(A))) < MIRROR
     assert _rel(inv, np.linalg.inv(A)) < LAPACK
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_tile_inv_reference_is_the_gj_solve_elimination(n):
+    """The plain tile inverse has the bits of gj_solve's plain elimination
+    of [A | I], row swaps at every step included."""
+    A = torch.as_tensor(_tile(n, True))
+    M = torch.cat([A, torch.eye(n, dtype=A.dtype)], dim=1)[None]
+    out, _ = gj_solve_reference(M)
+    assert torch.equal(bg.tile_inv_reference(A), out[0, :, n:])
 
 
 def test_tile_inv_of_a_strided_block():

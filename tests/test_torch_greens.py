@@ -1,7 +1,8 @@
 """The port's wave Green function against raft_tpu's: the Bessel and
 Struve functions (raft_tpu_torch/utils/bessel.py against
 raft_tpu/utils/bessel.py), the wave term in both forms (bilinear tables
-and Chebyshev patches), the finite-depth wavenumber and the
+and Chebyshev patches, the latter's evaluation gathered per region and
+masked), the finite-depth wavenumber and the
 finite-depth correction, on grids that cover all six Chebyshev patches,
 the large-argument asymptote and the b -> 0 lid rows, in float64 and
 float32; and the port's copies of the tables, byte for byte.
@@ -106,13 +107,28 @@ def test_wave_term_parity(form, dt):
             out = tg.wave_term(nut, _t(R), _t(zz),
                                *(_t(t) for t in tg.load_tables()))
         else:
-            ref = jg.wave_term_cheb(dt(nu), jnp.asarray(R), jnp.asarray(zz),
-                                    jg.load_cheb_tables())
+            ref = jax.jit(jg.wave_term_cheb)(dt(nu), jnp.asarray(R),
+                                             jnp.asarray(zz),
+                                             jg.load_cheb_tables())
             out = tg.wave_term_cheb(
                 nut, _t(R), _t(zz),
                 {k: _t(v) for k, v in tg.load_cheb_tables().items()})
         for o, r in zip(out, ref):
             _close(o.numpy(), r, dt)
+
+
+@DTYPES
+def test_eval_F_F1_cheb_masked_form_matches_gathered(dt):
+    """raft_tpu's branch-free form (all six patches at every element,
+    selected by mask) against the port's default (each element on its own
+    region's patch, which test_wave_term_parity holds against raft_tpu)
+    over the (a, b) grid."""
+    a, b = _t(A_GRID.astype(dt)), _t(B_GRID.astype(dt))
+    C = {k: _t(v) for k, v in tg.load_cheb_tables().items()}
+    gathered = tg.eval_F_F1_cheb(a, b, C)
+    masked = tg.eval_F_F1_cheb(a, b, C, masked=True)
+    for m, g in zip(masked, gathered):
+        _close(m.numpy(), g.numpy(), dt)
 
 
 @DTYPES

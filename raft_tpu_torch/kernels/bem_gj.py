@@ -3,21 +3,25 @@ the pivot-tile inverse and the matrix products, their plain PyTorch
 versions, and the staged composition.
 
 - :func:`tile_inv` — Gauss–Jordan inverse with partial pivoting of one
-  [n, n] pivot tile (n steps on ``[A | I]``); replaces the TPU kernel
-  ``raft_tpu/pallas_kernels.py:208`` (``tile_inv_pallas``, with
-  ``_tile_inv_kernel`` :184).  Kernel: ``csrc/tile_inv.cu``; plain
-  version: :func:`tile_inv_reference` (the arithmetic of
-  ``kernels/gj_solve.py``'s ``_gj_step`` on ``[A | I]``), bit for bit the
-  same.
+  [n, n] pivot tile (n steps on ``[A | I]``), n <= ``MAX_TILE``; replaces
+  the TPU kernel ``raft_tpu/pallas_kernels.py:208`` (``tile_inv_pallas``,
+  with ``_tile_inv_kernel`` :184).  Kernel: ``csrc/tile_inv.cu``, one
+  launch of one thread-block cluster holding the tile in place in its
+  registers, factored panel by panel (``sm_90a``); plain version:
+  :func:`tile_inv_reference`
+  (the arithmetic of ``kernels/gj_solve.py``'s ``_gj_step`` on
+  ``[A | I]``), bit for bit the same.
 - :func:`mm` / :func:`mm_sub` — ``L @ R`` and the fused ``X - L @ R``;
   replace ``mm_pallas`` :253 and ``mm_sub_pallas`` :263 (``_mm_call``
-  :235).  Kernel: ``csrc/mm.cu``, full float32/float64 multiply-adds;
-  plain versions: ``L @ R`` and ``X - L @ R``.
+  :235).  Kernel: ``csrc/mm.cu``, tensor-core products (three TF32
+  passes for full float32 accuracy, DMMA in float64); plain versions:
+  ``L @ R`` and ``X - L @ R``.
 - :func:`gj_stage` — the mirror of ``gj_stage_pallas`` :498: ``nblk``
   elimination steps of ``block`` rows from block row ``kb0``, no pivoting
-  between blocks.  A PyTorch loop over pivot blocks that calls the three
-  functions above; apart from them it only slices, masks with
-  ``torch.where`` and assigns slices.
+  between blocks.  A PyTorch loop over pivot blocks on one ``[A | b]``
+  buffer that calls the three functions above, one of each per step;
+  apart from them it only slices, masks with ``torch.where`` and assigns
+  slices.
 
 A tensor on the card goes to the kernel, built with ``nvcc`` for
 ``sm_90a`` at first use into ``build/raft_tpu_torch/`` and loaded with
@@ -25,8 +29,7 @@ A tensor on the card goes to the kernel, built with ``nvcc`` for
 tensor on the CPU goes to the plain version.
 
 ``launches`` counts each wrapper's kernel calls in this process: one per
-tile inverted (the call enqueues the n step kernels of the elimination),
-one per product.
+tile inverted, one per product.
 """
 
 import ctypes
@@ -42,14 +45,19 @@ MM_SOURCE = os.path.join(_build.CSRC, "mm.cu")
 SOURCES = (TILE_INV_SOURCE, MM_SOURCE)
 _HEADERS = {TILE_INV_SOURCE: (os.path.join(_build.CSRC, "gj_elim.cuh"),),
             MM_SOURCE: ()}
-MAX_TILE = 1024
+# the largest tile one thread-block cluster holds (csrc/tile_inv.cu); the
+# BEM path's pivot block (bem_solver.GJ_BLOCK) is 512
+MAX_TILE = 512
+# gj_stage pads the right-hand sides of [A | b] to a multiple of this many
+# columns, so every row is a multiple of 16 bytes (mm.cu's 16-byte copies)
+RHS_ALIGN = 8
 
 launches = {"tile_inv": 0, "mm": 0, "mm_sub": 0}
 _libs = {}
 
 _VP, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
-    "tile_inv": [_VP, _LONG, _VP, _VP, _INT, _VP],
+    "tile_inv": [_VP, _LONG, _VP, _VP, _VP, _INT, _VP],
     "mm": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
     "mm_sub": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
 }
@@ -85,6 +93,9 @@ def build(verbose=False, job=None):
                 fn = getattr(libs[src], f"{name}_{suffix}")
                 fn.argtypes = _SIGNATURES[name]
                 fn.restype = ctypes.c_int
+    shape = libs[TILE_INV_SOURCE].tile_inv_shape
+    shape.argtypes = [_INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_INT)]
+    shape.restype = ctypes.c_int
     _libs.update(libs)
     return _libs
 
@@ -123,7 +134,8 @@ def tile_inv(A):
     """Inverse of the square tile ``A [n, n]`` by Gauss–Jordan elimination
     with partial pivoting.  ``A`` may be a row-strided view (a block of a
     larger row-major matrix): its columns must be contiguous.  CPU tensors
-    take the plain version, CUDA tensors the kernel."""
+    take the plain version, CUDA tensors the kernel, which raises when the
+    card refuses its cluster launch."""
     _check_float("tile_inv", A)
     n = A.shape[0]
     if A.shape[1] != n or not 1 <= n <= MAX_TILE:
@@ -135,12 +147,26 @@ def tile_inv(A):
         raise ValueError("tile_inv needs unit column stride")
     fn = _kernel(TILE_INV_SOURCE, "tile_inv", A.dtype)
     out = torch.empty((n, n), dtype=A.dtype, device=A.device)
-    scratch = torch.empty((2, n, 2 * n), dtype=A.dtype, device=A.device)
+    # the multipliers and pivot rows the panels publish, and their flags
+    fac = torch.empty((n, n), dtype=A.dtype, device=A.device)
+    ints = torch.empty(2 * MAX_TILE, dtype=torch.int32, device=A.device)
     with torch.cuda.device(A.device):
-        rc = fn(A.data_ptr(), A.stride(0), out.data_ptr(),
-                scratch.data_ptr(), n, _stream(A))
+        rc = fn(A.data_ptr(), A.stride(0), out.data_ptr(), fac.data_ptr(),
+                ints.data_ptr(), n, _stream(A))
     _launched("tile_inv", rc)
     return out
+
+
+def tile_inv_launch_shape(n, dtype):
+    """``(cluster size, dynamic shared memory bytes per CTA)`` of the
+    kernel's launch for an [n, n] tile of ``dtype`` (builds the kernel)."""
+    cluster, smem = _INT(), _INT()
+    rc = build()[TILE_INV_SOURCE].tile_inv_shape(
+        n, int(dtype == torch.float64), ctypes.byref(cluster),
+        ctypes.byref(smem))
+    if rc != 0:
+        raise ValueError(f"tile_inv takes 1 <= n <= {MAX_TILE}, got {n}")
+    return cluster.value, smem.value
 
 
 def tile_inv_reference(A):
@@ -243,22 +269,28 @@ def gj_stage(A, b, kb0, nblk, block=512):
     every leading Schur complement invertible).  Returns the new
     ``(A, b)``; after all ``n / block`` steps ``b`` holds the solution.
     Two stages ``(0, k)`` then ``(k, n/block - k)`` compose to the whole
-    elimination.  The inputs are not modified."""
-    n = A.shape[0]
+    elimination.  The inputs are not modified.
+
+    The stage holds ``[A | b]`` as one ``[n, n + m_pad]`` buffer, ``b``
+    zero-padded to a multiple of ``RHS_ALIGN`` columns (zero columns stay
+    zero), so each step makes one ``mm`` (``Dinv @ [D | Db]``) and one
+    ``mm_sub`` where ``gj_stage_pallas`` makes two of each.  A kernel sums
+    each output element in the same order whatever the width, so on the
+    card the bits are those of the separate products; on the CPU the BLAS
+    may block a wider product otherwise (round-off).  ``A`` and ``b`` come
+    back as views of the buffer."""
+    n, m = A.shape[0], b.shape[1]
     if n % block:
         raise ValueError(f"gj_stage: n = {n} is not a multiple of {block}")
+    pad = torch.zeros((n, -m % RHS_ALIGN), dtype=A.dtype, device=A.device)
+    Ab = torch.cat([A, b, pad], dim=1)                      # [n, n + m_pad]
     rowidx = torch.arange(n, device=A.device)
     for kb in range(int(kb0), int(kb0) + int(nblk)):
         k0 = kb * block
-        D = A[k0:k0 + block]                                # [block, n]
-        Db = b[k0:k0 + block]                               # [block, m]
-        Dinv = tile_inv(A[k0:k0 + block, k0:k0 + block])
-        Arow = mm(Dinv, D)
-        brow = mm(Dinv, Db)
+        Dinv = tile_inv(Ab[k0:k0 + block, k0:k0 + block])
+        row = mm(Dinv, Ab[k0:k0 + block])                   # [block, n + m_pad]
         mask = ((rowidx >= k0) & (rowidx < k0 + block))[:, None]
-        C = torch.where(mask, 0.0, A[:, k0:k0 + block])     # [n, block]
-        A = mm_sub(A, C, Arow)
-        b = mm_sub(b, C, brow)
-        A[k0:k0 + block] = Arow
-        b[k0:k0 + block] = brow
-    return A, b
+        C = torch.where(mask, 0.0, Ab[:, k0:k0 + block])    # [n, block]
+        Ab = mm_sub(Ab, C, row)
+        Ab[k0:k0 + block] = row
+    return Ab[:, :n], Ab[:, n:n + m]

@@ -163,12 +163,13 @@ def test_cpu_tensors_take_the_plain_versions():
 @pytest.mark.parametrize("call", [
     lambda: bg.tile_inv(torch.zeros(4, 5, dtype=torch.float64)),
     lambda: bg.tile_inv(torch.zeros(4, 4, dtype=torch.int64)),
+    lambda: bg.tile_inv(torch.eye(513, dtype=torch.float32)),
     lambda: bg.mm(torch.zeros(4, 3), torch.zeros(4, 2)),
     lambda: bg.mm_sub(torch.zeros(4, 3), torch.zeros(4, 2),
                       torch.zeros(2, 2)),
     lambda: bg.mm(torch.zeros(4, 3), torch.zeros(3, 2, dtype=torch.float64)),
     lambda: bg.gj_stage(torch.eye(6), torch.zeros(6, 1), 0, 1, block=4),
-], ids=["non-square", "int", "inner-dim", "x-shape", "mixed-dtype",
+], ids=["non-square", "int", "tile-513", "inner-dim", "x-shape", "mixed-dtype",
         "ragged-block"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(call):
     with pytest.raises((ValueError, TypeError)):

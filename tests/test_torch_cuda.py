@@ -191,6 +191,25 @@ def test_tile_inv_kernel_matches_plain_version(cuda, dtype, n, swaps):
     assert torch.equal(inv, ref)
 
 
+def test_tile_inv_kernel_refuses_a_tile_above_one_cluster(cuda):
+    A = torch.eye(bg.MAX_TILE + 1, dtype=torch.float32, device=cuda)
+    before = bg.launches["tile_inv"]
+    with pytest.raises(ValueError, match="at most 512"):
+        bg.tile_inv(A)
+    assert bg.launches["tile_inv"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tile_inv_launch_shape(cuda, dtype):
+    """One cluster per tile: 8 CTAs in float32 and 16 in float64 at
+    n = 512 (a 128 KB column slab each), each under the 227 KB of shared
+    memory a block may use."""
+    cluster, smem = bg.tile_inv_launch_shape(512, dtype)
+    assert cluster == (16 if dtype == torch.float64 else 8)
+    assert 0 < smem <= 232448
+    assert bg.tile_inv_launch_shape(8, dtype)[0] == 1
+
+
 def _mm_bar(L, R):
     """The accumulated rounding of a K-term sum: K eps max(|L| @ |R|)."""
     K = L.shape[1]
@@ -198,12 +217,12 @@ def _mm_bar(L, R):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("M,K,N", [(512, 512, 5120), (512, 512, 7),
-                                   (5120, 512, 5120), (5120, 512, 7),
-                                   (37, 19, 3)])
+@pytest.mark.parametrize("M,K,N", [(512, 512, 5128), (5120, 512, 5128),
+                                   (37, 19, 3), (130, 67, 133)])
 def test_mm_kernels_match_plain_version(cuda, dtype, M, K, N):
-    """The four products of one elimination step at 2N = 5120 and a
-    ragged small one."""
+    """The two products of one folded elimination step at 2N = 5120
+    (Dinv @ [D | Db] and the [A | b] update, 7 right-hand sides padded to
+    8), and ragged shapes that take the element-wise copies."""
     g = torch.Generator().manual_seed(M + K + N)
     L, R, X = (torch.randn(*s, generator=g, dtype=torch.float64).to(
         cuda, dtype) for s in ((M, K), (K, N), (M, N)))
@@ -222,8 +241,9 @@ def test_mm_kernels_match_plain_version(cuda, dtype, M, K, N):
                                        (torch.float32, 1e-4)],
                          ids=["f64", "f32"])
 def test_blocked_gj_on_the_card_solves(cuda, dtype, bar):
-    """n = 1536, m = 9 through the kernels: 3 tile inverses, 6 products
-    and 6 updates, and the solution of the dense solve."""
+    """n = 1536, m = 9 through the kernels: 3 tile inverses, 3 products
+    and 3 updates ([A | b] folded), and the solution of the dense
+    solve."""
     rng = np.random.default_rng(0)
     n, m = 1536, 9
     A = rng.normal(size=(n, n)) * 0.05
@@ -233,7 +253,7 @@ def test_blocked_gj_on_the_card_solves(cuda, dtype, bar):
     bg.reset_launches()
     x = tb._blocked_gj(torch.as_tensor(A, dtype=dtype, device=cuda),
                        torch.as_tensor(b, dtype=dtype, device=cuda))
-    assert bg.launches == {"tile_inv": 3, "mm": 6, "mm_sub": 6}
+    assert bg.launches == {"tile_inv": 3, "mm": 3, "mm_sub": 3}
     err = np.abs(x.double().cpu().numpy() - x_ref).max()
     assert err <= bar * np.abs(x_ref).max()
 
@@ -265,7 +285,7 @@ def test_solve_bem_card_form_on_the_card(cuda, monkeypatch):
         np.array([0, 0, 10.0]), 4.0, 3.0))
     bg.reset_launches()
     out = tb.solve_bem(panels, [0.5, 0.9], depth=200.0)
-    assert bg.launches == {"tile_inv": 4, "mm": 8, "mm_sub": 8}
+    assert bg.launches == {"tile_inv": 4, "mm": 4, "mm_sub": 4}
     ref = tb.solve_bem(panels, [0.5, 0.9], depth=200.0, backend="cuda",
                        device="cpu")
     for k, bar in (("A", 2e-4), ("B", 1e-3), ("X", 2e-4)):

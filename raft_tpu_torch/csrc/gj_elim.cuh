@@ -1,8 +1,13 @@
 // Warp-cooperative Gauss-Jordan elimination of one augmented system,
-// shared by gj_solve.cu and fused_block.cu.
+// shared by gj_solve.cu and fused_block.cu (tile_inv.cu takes the
+// rounding helpers and the pivot key).
 //
-// A group of GJ_GROUP = 16 lanes owns one system [n, m]; lane r holds
-// row r in registers (x[0..m)).  n steps of
+// It is the step of the TPU kernels' one-hot elimination
+// raft_tpu/pallas_kernels.py:102-125 (_gj_elim_body), which
+// gauss_solve_pallas (:150) and _fused_fp_kernel (:275) run.  A group of
+// GJ_GROUP = 16 lanes owns one system [n, m] (n <= N rows, m <= 16 C
+// columns); lane j holds column j (and j + 16, ... for C > 1) in
+// registers, x[c][r] = row r of its column c.  n steps of
 //
 //   p    = argmax_{r >= i} |x_r[i]|   (first index wins ties; NaN is the
 //                                       largest, as with jnp.argmax)
@@ -10,19 +15,32 @@
 //   row  = x_i / x_i[i]
 //   x_r -= x_r[i] * row               for r != i,  x_i = row
 //
-// The pivot search is an argmax across the group by __shfl_xor_sync; the
-// row swap and the pivot-row broadcast are __shfl_sync reads of the pivot
-// and target lanes.  Every loop is unrolled to the compile-time bounds
-// MAXN x MAXM, so each row element stays in a register; runtime n and m
-// only guard the steps.  The update is rounded as two operations, a
-// product and then a difference (never a fused multiply-add), and the
-// row is an IEEE division, so the result has the bits of the plain
-// PyTorch version of the step (raft_tpu_torch/kernels/gj_solve.py
-// _gj_step).
+// Column per lane, so that:
+//   - the pivot search is lane i's scan of its own column, in registers
+//     (no shuffle rounds), then one shuffle sends p to the group;
+//   - the row swap is every lane's swap of its own registers i and p, an
+//     unrolled compare-and-select since p is a run-time index;
+//   - one shuffle brings the pivot from lane i, and each lane divides
+//     only its own column's x[i]: one IEEE division per lane and step
+//     (a row-per-lane form divides all m columns in every lane);
+//   - lane j updates its column with column i's multipliers, n - 1
+//     shuffles of compile-time register indices from lane i.
+// The update is rounded as two operations, a product and then a
+// difference (never a fused multiply-add), and the row is an IEEE
+// division, so the result has the bits of the plain PyTorch version of
+// the step (raft_tpu_torch/kernels/gj_solve.py _gj_step).  A shape known
+// at compile time passes n = N as a literal, and the row guards fold
+// away.
+//
+// What bounds it: the step is a chain of dependent latencies (the scan,
+// two shuffles, the division, the multiply-subtract), about a dozen
+// per step; the arithmetic is a division and 2 (n - 1) operations per
+// lane.  Callers keep enough independent groups in flight per SM to hide
+// the chain.
 //
 // Every shuffle runs with the full warp mask: the caller keeps the call
-// warp-uniform (both half-warps call it together), and lanes past n (or
-// of a system that does not exist) carry zeros.
+// warp-uniform (both half-warps call it together, with the same n), and
+// lanes past m (or of a system that does not exist) carry zeros.
 
 #pragma once
 
@@ -43,49 +61,67 @@ __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, 
 __device__ __forceinline__ double abs_(double a) { return fabs(a); }
 __device__ __forceinline__ float abs_(float a) { return fabsf(a); }
 
-// (v, r) beats (w, s): NaN beats every number, a larger value beats a
-// smaller one, and among equals (or two NaNs) the lower row wins.
-template <typename T>
-__device__ __forceinline__ bool beats(T v, int r, T w, int s) {
-  const bool vn = v != v, wn = w != w;      // NaN tests
-  if (vn || wn) return vn && (!wn || r < s);
-  return v > w || (v == w && r < s);
+// The pivot search's order as an unsigned key: |x| of a candidate row as
+// its bit pattern plus one (NaN made the largest), 0 for rows that are
+// not candidates.  A larger key wins and the first row wins among equal
+// keys: NaN beats every number, a larger value beats a smaller one, and
+// among equals (or two NaNs) the lower row wins.
+__device__ __forceinline__ unsigned long long pivot_key(double a, bool ok) {
+  const unsigned long long b =
+      a != a ? 0x7fffffffffffffffull : (unsigned long long)__double_as_longlong(a);
+  return ok ? b + 1 : 0;
 }
 
-// Eliminate the system whose row r this lane holds in x.  on_pivot(i,
-// |pivot|) is called by every lane at every step i (the value is the same
-// across the group).
-template <typename T, int MAXN, int MAXM, typename PivotFn>
-__device__ __forceinline__ void eliminate(T (&x)[MAXM], int r, int n, int m,
+__device__ __forceinline__ unsigned long long pivot_key(float a, bool ok) {
+  const unsigned b = a != a ? 0x7fffffffu : __float_as_uint(a);
+  return ok ? b + 1ull : 0;
+}
+
+// Eliminate the system whose columns this lane holds (see the note at the
+// top).  on_pivot(i, |pivot|) is called by every lane at every step i
+// (the value is the same across the group).
+template <typename T, int N, int C, typename PivotFn>
+__device__ __forceinline__ void eliminate(T (&x)[C][N], int n,
                                           PivotFn on_pivot) {
   const unsigned full = 0xffffffffu;
-  const T ninf = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < MAXN; ++i) {
+  for (int i = 0; i < N; ++i) {
     if (i >= n) break;                          // uniform across the warp
-    // pivot row: argmax of |x[i]| over rows r >= i of the group
-    T v = (r >= i && r < n) ? abs_(x[i]) : ninf;
-    int p = r;
+    // pivot row: lane i scans column i (every lane scans its own column,
+    // and lane i's result is the one taken)
+    unsigned long long best = pivot_key(abs_(x[0][i]), true);
+    int p = i;
 #pragma unroll
-    for (int off = GROUP / 2; off > 0; off >>= 1) {
-      const T v2 = __shfl_xor_sync(full, v, off, GROUP);
-      const int p2 = __shfl_xor_sync(full, p, off, GROUP);
-      if (beats(v2, p2, v, p)) { v = v2; p = p2; }
+    for (int r = i + 1; r < N; ++r) {
+      const unsigned long long k = pivot_key(abs_(x[0][r]), r < n);
+      if (k > best) { best = k; p = r; }
     }
-    const T piv = __shfl_sync(full, x[i], p, GROUP);
-    const T xii = __shfl_sync(full, x[i], i, GROUP);
-    // column i of this lane's row after the swap
-    const T fac = (r == i) ? piv : ((r == p) ? xii : x[i]);
+    p = __shfl_sync(full, p, i, GROUP);
+    // swap rows i and p of every column held
 #pragma unroll
-    for (int j = 0; j < MAXM; ++j) {
-      if (j < m) {                              // uniform across the warp
-        const T a = __shfl_sync(full, x[j], p, GROUP);   // pivot row
-        const T b = __shfl_sync(full, x[j], i, GROUP);   // row i
-        const T cur = (r == i) ? a : ((r == p) ? b : x[j]);
-        const T row = div_rn(a, piv);
-        x[j] = (r == i) ? row : sub_rn(cur, mul_rn(fac, row));
-      }
+    for (int c = 0; c < C; ++c) {
+      const T xi = x[c][i];
+      T xp = xi;
+#pragma unroll
+      for (int r = i + 1; r < N; ++r) xp = (r == p) ? x[c][r] : xp;
+#pragma unroll
+      for (int r = i + 1; r < N; ++r) x[c][r] = (r == p) ? xi : x[c][r];
+      x[c][i] = xp;
     }
+    const T piv = __shfl_sync(full, x[0][i], i, GROUP);
+    T row[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) row[c] = div_rn(x[c][i], piv);
+    // the multipliers are column i after the swap, held by lane i
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      if (r == i || r >= n) continue;           // uniform across the warp
+      const T fac = __shfl_sync(full, x[0][r], i, GROUP);
+#pragma unroll
+      for (int c = 0; c < C; ++c) x[c][r] = sub_rn(x[c][r], mul_rn(fac, row[c]));
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) x[c][i] = row[c];
     on_pivot(i, abs_(piv));
   }
 }

@@ -17,24 +17,44 @@
 //
 // Design.  The elimination of one system is gj::eliminate in
 // gj_elim.cuh (shared with fused_block.cu): a group of 16 lanes owns one
-// system (two systems per warp), lane r holds row r in registers, the
-// pivot search is a shuffle argmax, and the update is rounded as a
-// product then a difference, never a fused multiply-add, so the kernel
-// gives the same bits as the plain PyTorch version of the step.  A
-// grid-stride loop covers B.
+// system (two systems per warp), lane j holds column j in registers (and
+// column j + 16 when m > 16), the pivot search is lane i's scan of its
+// own column, each lane divides once per step, and the update is rounded
+// as a product then a difference, never a fused multiply-add, so the
+// kernel gives the same bits as the plain PyTorch version of the step.
+// Lane j loads and stores column j of each row, so lanes 0..m-1 of a
+// group touch consecutive addresses.  The main path's shape, n = 12 and
+// m = 13, has its own instantiation with both known at compile time;
+// other shapes take the generic one (n <= 16, one or two columns per
+// lane).  CTAs of 64 threads (4 systems), so the main path's 1536
+// systems make 384 CTAs and put work on every one of the card's 132 SMs;
+// a grid-stride loop covers batches beyond the grid's cap.
 //
-// Bound on this card.  At the main path's 1536 systems x 12 x 13 in f64
-// one call reads and writes about 4 MB and does about 6 MFLOP: about a
-// microsecond of memory time and less of arithmetic.  Measured on an
-// H100 80GB HBM3 at 700 W (chip_smoke.py, docs/torch_port.md section 6):
-// 0.0568 ms per call, 48x that bound and well above launch latency.  The
-// time is latency inside the kernel: 768 warps (under 6 per SM) each
-// walk 12 dependent steps of a 4-round shuffle argmax and 13 divisions.
-// One launch per solve (not one per step) is all this design does about
-// it; the open options are in docs/torch_port.md section 7.
+// What bounds it on this card.  At the main path's 1536 systems x 12 x
+// 13 in f64 one call reads and writes about 4 MB and does about 6 MFLOP:
+// about a microsecond of memory time and less of arithmetic.  Every SM
+// holds 5-6 warps of independent systems, so the time is one system's
+// chain of 12 dependent steps (the scan, two shuffles, one division, the
+// multiply-subtract), the loads and stores, and the launch.  Predicted
+// (before the first card run of this design): 0.004-0.012 ms of device
+// time in f64, 0.003-0.008 ms in f32, against 0.057 / 0.038-0.050 ms for
+// the row-per-lane form it replaces (13 redundant divisions per lane and
+// step behind a 4-round shuffle argmax, 96 CTAs on 132 SMs); a call from
+// Python then costs about as much host time as the kernel takes.
+// Measured (chip_smoke.py on an H100 80GB HBM3 at 700 W; docs/torch_port.md
+// section 6): 0.0073 ms in f64 and 0.0057 ms in f32 of device time,
+// against 0.0564 / 0.0376 ms for the row-per-lane form in the same run;
+// 60 registers in f64, 32 in f32, no spills.  Of the f64 time about
+// 0.002 ms is the chain of 12 divisions (a build with the division
+// replaced by a product takes 0.0055 ms); the rest is the step's other
+// latencies and issue (some 250 instructions per warp and step, counted
+// from the source).  A call from
+// Python costs 0.019-0.044 ms, so the host, not the kernel, now bounds
+// each solve of the fixed point.
 //
 // C interface: gj_solve_f64 / gj_solve_f32 launch on the given stream and
-// return cudaGetLastError() (0 = launched).
+// return cudaGetLastError() (0 = launched); gj_solve_shape reports the
+// launch shape (CTAs, threads per CTA) for a batch size.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,39 +65,59 @@ namespace {
 
 constexpr int MAXN = 16;
 constexpr int MAXM = 32;
-constexpr int THREADS = 256;        // 16 systems per block
+constexpr int THREADS = 64;                     // 4 systems per CTA
+constexpr int SYSTEMS_PER_CTA = THREADS / gj::GROUP;
+constexpr long MAX_CTAS = 1L << 20;             // the grid-stride loop covers the rest
 
-template <typename T>
+// Systems of n <= N rows and m <= 16 C columns; a shape fixed at compile
+// time passes its m as M (then n = N, m = M), the generic one M = 0.
+template <typename T, int N, int C, int M>
 __global__ void __launch_bounds__(THREADS)
 gj_solve_kernel(const T* __restrict__ in, T* __restrict__ out,
-                T* __restrict__ piv_out, int B, int n, int m) {
+                T* __restrict__ piv_out, int B, int n_arg, int m_arg) {
+  const int n = M ? N : n_arg;
+  const int m = M ? M : m_arg;
   const int lane = threadIdx.x & 31;
-  const int r = lane & (gj::GROUP - 1);         // row owned by this lane
+  const int j = lane & (gj::GROUP - 1);         // column held by this lane
   const int half = lane >> 4;                   // system within the warp
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int nwarps = (gridDim.x * blockDim.x) >> 5;
+  const long warp = ((long)blockIdx.x * THREADS + threadIdx.x) >> 5;
+  const long nwarps = ((long)gridDim.x * THREADS) >> 5;
 
   // the loop bound is uniform across the warp, so every shuffle below
-  // runs with all 32 lanes; lanes past B or n carry zeros and never write
-  for (long base = 2L * warp; base < B; base += 2L * nwarps) {
+  // runs with all 32 lanes; lanes past B or m carry zeros and never write
+  for (long base = 2 * warp; base < B; base += 2 * nwarps) {
     const long sys = base + half;
-    const bool live = sys < B && r < n;
-    const T* src = in + sys * n * m + (long)r * m;
-    T x[MAXM];
+    const bool live = sys < B;
+    const T* src = in + sys * n * m;
+    T x[C][N];
 #pragma unroll
-    for (int j = 0; j < MAXM; ++j) x[j] = (live && j < m) ? src[j] : T(0);
+    for (int c = 0; c < C; ++c) {
+      const int col = j + gj::GROUP * c;
+#pragma unroll
+      for (int r = 0; r < N; ++r)
+        x[c][r] = (live && r < n && col < m) ? src[r * m + col] : T(0);
+    }
 
-    gj::eliminate<T, MAXN, MAXM>(x, r, n, m, [&](int i, T apiv) {
-      if (r == 0 && sys < B) piv_out[sys * n + i] = apiv;
+    gj::eliminate<T, N, C>(x, n, [&](int i, T apiv) {
+      if (j == 0 && live) piv_out[sys * n + i] = apiv;
     });
 
-    T* dst = out + sys * n * m + (long)r * m;
-    if (live) {
+    T* dst = out + sys * n * m;
 #pragma unroll
-      for (int j = 0; j < MAXM; ++j)
-        if (j < m) dst[j] = x[j];
+    for (int c = 0; c < C; ++c) {
+      const int col = j + gj::GROUP * c;
+      if (live && col < m) {
+#pragma unroll
+        for (int r = 0; r < N; ++r)
+          if (r < n) dst[r * m + col] = x[c][r];
+      }
     }
   }
+}
+
+long ctas_for(int B) {
+  const long ctas = ((long)B + SYSTEMS_PER_CTA - 1) / SYSTEMS_PER_CTA;
+  return ctas < MAX_CTAS ? ctas : MAX_CTAS;
 }
 
 template <typename T>
@@ -86,10 +126,16 @@ int launch(const T* in, T* out, T* piv, int B, int n, int m,
   if (B < 0 || n < 1 || n > MAXN || m < n || m > MAXM)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const int systems_per_block = THREADS / gj::GROUP;
-  long blocks = (B + systems_per_block - 1) / systems_per_block;
-  if (blocks > 65535) blocks = 65535;           // the grid-stride loop covers the rest
-  gj_solve_kernel<T><<<(int)blocks, THREADS, 0, stream>>>(in, out, piv, B, n, m);
+  const dim3 grid((unsigned)ctas_for(B));
+  if (n == 12 && m == 13)                       // the main path's systems
+    gj_solve_kernel<T, 12, 1, 13><<<grid, THREADS, 0, stream>>>(
+        in, out, piv, B, n, m);
+  else if (m <= gj::GROUP)
+    gj_solve_kernel<T, MAXN, 1, 0><<<grid, THREADS, 0, stream>>>(
+        in, out, piv, B, n, m);
+  else
+    gj_solve_kernel<T, MAXN, 2, 0><<<grid, THREADS, 0, stream>>>(
+        in, out, piv, B, n, m);
   return (int)cudaGetLastError();
 }
 
@@ -103,4 +149,11 @@ extern "C" int gj_solve_f64(const double* in, double* out, double* piv,
 extern "C" int gj_solve_f32(const float* in, float* out, float* piv,
                             int B, int n, int m, void* stream) {
   return launch<float>(in, out, piv, B, n, m, (cudaStream_t)stream);
+}
+
+extern "C" int gj_solve_shape(int B, int* ctas, int* threads) {
+  if (B < 0) return (int)cudaErrorInvalidValue;
+  *ctas = (int)ctas_for(B);
+  *threads = THREADS;
+  return 0;
 }

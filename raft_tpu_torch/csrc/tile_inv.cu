@@ -39,7 +39,7 @@
 //
 //   the owner of panel k factors it: on a copy of its W columns in shared
 //   memory (a thread per row) it finds each step's pivot (a CTA argmax on
-//   keys with gj::beats' order, by __reduce_max_sync) and multipliers,
+//   gj::pivot_key's keys, by __reduce_max_sync) and multipliers,
 //   applies the step to the panel's later columns, writes pivots and
 //   multipliers to device memory (L2) and sets the panel's flag;
 //   every CTA waits for the flag, loads the panel into shared memory and
@@ -121,21 +121,6 @@ __device__ __forceinline__ int load_acquire(const int* p) {
 
 __device__ __forceinline__ void store_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;\n" :: "l"(p), "r"(v) : "memory");
-}
-
-// The pivot search's order as an unsigned key: |x| of a candidate row
-// as its bit pattern plus one (NaN made the largest), 0 for rows that are
-// not candidates; the first row wins among equal keys.  The same total
-// order as gj::beats.
-__device__ __forceinline__ unsigned long long pivot_key(double a, bool ok) {
-  const unsigned long long b =
-      a != a ? 0x7fffffffffffffffull : (unsigned long long)__double_as_longlong(a);
-  return ok ? b + 1 : 0;
-}
-
-__device__ __forceinline__ unsigned long long pivot_key(float a, bool ok) {
-  const unsigned b = a != a ? 0x7fffffffu : __float_as_uint(a);
-  return ok ? b + 1ull : 0;
 }
 
 // the first lane holding the warp's largest key
@@ -235,7 +220,7 @@ __device__ void factor_panel(T* pan, T* rvs, unsigned long long* wk, int* wp,
   for (int j = 0; j < w; ++j) {
     const int g = g0 + j;
     const int p = argmax_block(
-        pivot_key(gj::abs_(pan[r * PW + j]), r >= g && r < n), wk, wp);
+        gj::pivot_key(gj::abs_(pan[r * PW + j]), r >= g && r < n), wk, wp);
     const T f = r < n ? pan[(r == g ? p : (r == p ? g : r)) * PW + j] : T(0);
     if (r < n) facg[(long)g * n + r] = f;
     if (r == 0) pg[g] = p;

@@ -21,10 +21,12 @@ It replaces the TPU kernel ``raft_tpu/pallas_kernels.py:428``
 
 - A tensor on the card goes to the kernel in ``csrc/fused_block.cu``,
   built with ``nvcc`` for ``sm_90a`` at first use into
-  ``build/raft_tpu_torch/`` and loaded with ``ctypes``.  A failed build
-  or launch raises; there is no fallback.  The kernel takes N <= 512
-  nodes and W <= 256 frequencies in float32 or float64; anything else
-  raises ``ValueError``.
+  ``build/raft_tpu_torch/`` and loaded with ``ctypes``.  Each lane is one
+  thread-block cluster whose CTAs split the frequencies
+  (:func:`launch_shape`), so the launch needs ``sm_90a`` (an H100 or
+  later).  A failed build or launch raises; there is no fallback.  The
+  kernel takes N <= 512 nodes and W <= 256 frequencies in float32 or
+  float64; anything else raises ``ValueError``.
 - A tensor on the CPU goes to :func:`fused_block_reference`, the plain
   version of the same K trips in the same split real/imaginary form.
 
@@ -53,6 +55,7 @@ MAX_W = 256
 
 launches = 0
 _lib = None
+_INT = ctypes.c_int
 
 _NODE_FIELDS = ("r", "q", "qMat", "p1Mat", "p2Mat", "a_q", "a_p1", "a_p2",
                 "a_end_abs", "Cd_q", "Cd_p1", "Cd_p2", "Cd_End",
@@ -93,18 +96,41 @@ def build(verbose=False, job=None):
     global _lib
     if _lib is not None and not verbose and job is None:
         return _lib
-    lib = _build.finish(job or start_build(verbose), verbose)
+    lib = bind(_build.finish(job or start_build(verbose), verbose))
+    lib.fused_block_shape.argtypes = [_INT, _INT, _INT,
+                                      *(ctypes.POINTER(_INT),) * 3]
+    lib.fused_block_shape.restype = _INT
+    _lib = lib
+    return lib
+
+
+def bind(lib):
+    """Declare the kernel entry points' C signatures on ``lib`` (any build
+    of a source with the C interface of ``csrc/fused_block.cu``)."""
     for name in ("fused_block_f64", "fused_block_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_void_p),
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_double, ctypes.c_double,
+                       _INT, _INT, _INT, _INT, ctypes.c_double,
                        ctypes.c_double, ctypes.c_double, ctypes.c_double,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    _lib = lib
+                       ctypes.c_double, _INT, _INT, ctypes.c_void_p]
+        fn.restype = _INT
     return lib
+
+
+def launch_shape(N, W, dtype):
+    """``(cluster size G, frequencies per CTA, dynamic shared memory bytes
+    per CTA)`` of the kernel's launch for ``N`` nodes and ``W``
+    frequencies in ``dtype`` (builds the kernel); a call launches G CTAs
+    per lane."""
+    g, f, smem = _INT(), _INT(), _INT()
+    rc = build().fused_block_shape(N, W, int(dtype == torch.float64),
+                                   ctypes.byref(g), ctypes.byref(f),
+                                   ctypes.byref(smem))
+    if rc != 0:
+        raise ValueError(f"the fused kernel takes 1 <= N <= {MAX_NODES} and "
+                         f"1 <= W <= {MAX_W}, got N={N}, W={W}")
+    return g.value, f.value, smem.value
 
 
 def _shared_nodes(nodes, L):
@@ -207,6 +233,12 @@ def _c_drag(rho):
     return math.sqrt(8.0 / math.pi) * 0.5 * float(rho)
 
 
+def _rms_sums(*terms):
+    """Each [..., N, 3, W] term summed over its components and frequencies:
+    the three per-node sums under the RMS velocities."""
+    return tuple(torch.sum(t, dim=(-2, -1)) for t in terms)
+
+
 def _fp_step(nodes, ur, ui, C, M, B, Flr, Fli, w, dw, c_drag, XLr, XLi):
     """One fixed-point solve at the linearization point XL [L, 6, W] in
     split real/imaginary arithmetic; returns the new iterate (re, im)."""
@@ -230,13 +262,12 @@ def _fp_step(nodes, ur, ui, C, M, B, Flr, Fli, w, dw, c_drag, XLr, XLi):
     vri = torch.where(m3, ui - (w * drr), zero)
     cq_r = vrr * q[..., None]
     cq_i = vri * q[..., None]
-    vRMS_q = torch.sqrt(torch.sum(cq_r * cq_r + cq_i * cq_i, dim=(-2, -1))
-                        * dw)
     abs2 = vrr * vrr + vri * vri
-    vRMS_p1 = torch.sqrt(torch.sum(abs2 * p1_sq[..., None], dim=(-2, -1))
-                         * dw)
-    vRMS_p2 = torch.sqrt(torch.sum(abs2 * p2_sq[..., None], dim=(-2, -1))
-                         * dw)
+    sq, s1, s2 = _rms_sums(cq_r * cq_r + cq_i * cq_i,
+                           abs2 * p1_sq[..., None], abs2 * p2_sq[..., None])
+    vRMS_q = torch.sqrt(sq * dw)
+    vRMS_p1 = torch.sqrt(s1 * dw)
+    vRMS_p2 = torch.sqrt(s2 * dw)
     Bq = c_drag * vRMS_q * nodes.a_q * nodes.Cd_q
     Bp1 = c_drag * vRMS_p1 * nodes.a_p1 * nodes.Cd_p1
     Bp2 = c_drag * vRMS_p2 * nodes.a_p2 * nodes.Cd_p2

@@ -8,10 +8,11 @@ every step, ``[B, n]``.  It replaces the TPU kernel
 ``raft_tpu/pallas_kernels.py:128-179`` (``gauss_solve_pallas``).
 
 - A tensor on the card goes to the kernel in ``csrc/gj_solve.cu`` (its
-  elimination is ``csrc/gj_elim.cuh``), built with ``nvcc`` for
-  ``sm_90a`` at first use into ``build/raft_tpu_torch/`` and loaded
-  with ``ctypes`` (kernels/_build.py).  A failed build or launch raises;
-  there is no fallback.
+  elimination is ``csrc/gj_elim.cuh``: a lane per column, one division
+  per lane and step; :func:`launch_shape` gives its grid), built with
+  ``nvcc`` for ``sm_90a`` at first use into ``build/raft_tpu_torch/``
+  and loaded with ``ctypes`` (kernels/_build.py).  A failed build or
+  launch raises; there is no fallback.
 - A tensor on the CPU goes to :func:`gj_solve_reference`, the plain
   version of the same steps (the mirror of ``raft_tpu.dynamics._gj_step``).
 
@@ -33,6 +34,7 @@ MAX_M = 32
 
 launches = 0
 _lib = None
+_INT = ctypes.c_int
 
 
 def start_build(verbose=False):
@@ -49,15 +51,33 @@ def build(verbose=False, job=None):
     global _lib
     if _lib is not None and not verbose and job is None:
         return _lib
-    lib = _build.finish(job or start_build(verbose), verbose)
+    lib = bind(_build.finish(job or start_build(verbose), verbose))
+    lib.gj_solve_shape.argtypes = [_INT, ctypes.POINTER(_INT),
+                                   ctypes.POINTER(_INT)]
+    lib.gj_solve_shape.restype = _INT
+    _lib = lib
+    return lib
+
+
+def bind(lib):
+    """Declare the kernel entry points' C signatures on ``lib`` (any build
+    of a source with the C interface of ``csrc/gj_solve.cu``)."""
     for name in ("gj_solve_f64", "gj_solve_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    _lib = lib
+                       _INT, _INT, _INT, ctypes.c_void_p]
+        fn.restype = _INT
     return lib
+
+
+def launch_shape(B):
+    """``(CTAs, threads per CTA)`` of the kernel's launch for ``B``
+    systems (builds the kernel)."""
+    ctas, threads = _INT(), _INT()
+    rc = build().gj_solve_shape(B, ctypes.byref(ctas), ctypes.byref(threads))
+    if rc != 0:
+        raise ValueError(f"gj_solve takes B >= 0, got {B}")
+    return ctas.value, threads.value
 
 
 def _check(M):

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card — Gauss–Jordan, the fused fixed-point
-block, and the BEM solve's pivot-tile inverse and matrix products —
+block (one thread-block cluster per lane), and the BEM solve's pivot-tile
+inverse and matrix products —
 (marked ``cuda``; each test skips with its reason where there is no
 card).  This file imports neither jax nor raft_tpu, so it runs on a
 machine with only the port's dependencies:
@@ -36,10 +37,13 @@ def cuda():
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("B,n,m", [(1, 1, 1), (37, 6, 7), (1536, 12, 13),
-                                   (101, 16, 32)])
+                                   (101, 16, 32), (64, 12, 14), (65, 12, 17)])
 def test_kernel_matches_plain_version(cuda, dtype, B, n, m):
     """Odd batch sizes leave half a warp idle; n = 16, m = 32 are the
-    kernel's limits.  Row swaps from the first step on, one NaN system."""
+    kernel's limits (two columns per lane above m = 16).  [1536, 12, 13]
+    takes the instantiation specialised to the main path's shape, the
+    others the generic one.  Row swaps from the first step on, one NaN
+    system."""
     g = torch.Generator().manual_seed(B * 100 + n)
     M = torch.randn(B, n, m, generator=g, dtype=torch.float64)
     M[:, :, :n] += n * torch.eye(n, dtype=torch.float64)
@@ -56,6 +60,16 @@ def test_kernel_matches_plain_version(cuda, dtype, B, n, m):
         assert torch.equal(torch.isnan(a), torch.isnan(b))
         fin = ~torch.isnan(b)
         assert torch.equal(a[fin], b[fin])      # no FMA: the same bits
+
+
+def test_gj_launch_shape_covers_every_sm(cuda):
+    """The main path's 1536 systems, 4 to a 64-thread CTA, put work on
+    every SM of the card."""
+    ctas, threads = gk.launch_shape(1536)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (ctas, threads) == (384, 64)
+    assert ctas >= sms
+    assert gk.launch_shape(0) == (0, 64)
 
 
 def test_gauss_solve_on_the_card_solves(cuda):
@@ -135,6 +149,89 @@ def test_fused_kernel_matches_plain_version(cuda, dtype, tol, shared):
     for a, b in zip(out, state):
         assert torch.equal(a[2], b[2])
     assert out[5][5] and out[4][5]
+
+
+FUSED_L = (1, 16, 64)
+
+
+@pytest.fixture(scope="module")
+def fused_base():
+    """A 256-frequency spar at 64 lanes on the card, per dtype: the
+    prelude's operands and the state after one torch block (K = 3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    cuda = torch.device("cuda")
+    L = max(FUSED_L)
+    base = {}
+    for dtype in (torch.float64, torch.float32):
+        m = raft_tpu_torch.Model(
+            deep_spar(n_cases=2, nw_settings=(0.0025, 0.64)), device=cuda,
+            precision=str(dtype)[6:])
+        m.analyze_unloaded()
+        args, _ = m.prepare_case_inputs(verbose=False)
+        args = [np.concatenate([np.asarray(a)] * (L // 2)) for a in args]
+        args[0] = args[0] * np.geomspace(0.1, 10.0, L)[:, None]
+        nodes = m.nodes.to(cuda, dtype)
+        physics = SlotPhysics.from_model(m)
+        prelude_fn, torch_block, _ = _phase_pipelines(
+            physics, 0.8, 3, False, False, str(cuda))
+        dev = case_args_from_numpy(args, cuda, dtype)
+        u, Fr, Fi, state = prelude_fn(nodes, *dev)
+        C, M, B = dev[2:5]
+        state = torch_block(nodes, u, C, M, B, Fr, Fi, state)
+        w = torch.as_tensor(physics.w, dtype=dtype, device=cuda)
+        base[dtype] = (physics, nodes, (u, C, M, B, Fr, Fi), state, w)
+    return base
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_lane"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-4)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("L", FUSED_L)
+@pytest.mark.parametrize("W,G", [(1, 1), (37, 3), (128, 8), (256, 8)])
+def test_fused_kernel_cluster_shapes(fused_base, W, G, L, dtype, tol,
+                                     shared):
+    """The first W frequencies and L lanes of the 256-frequency spar
+    (lane 1 done, the last lane NaN where L > 2): one cluster of G CTAs
+    per lane, ragged slices at W = 37 (13, 13, 11), two elimination
+    rounds per CTA at W = 256; the bars of the test above."""
+    physics, nodes, ops, state, w = fused_base[dtype]
+    cut = lambda t: t[:L, ..., :W].contiguous()       # noqa: E731
+    u, C, M, B, Fr, Fi = ops
+    u = cut(u)
+    M, B, Fr, Fi = (t[:L, :W].contiguous() for t in (M, B, Fr, Fi))
+    C = C[:L].clone()
+    it, xn, xp, xf, dn, fz = state
+    state = [it[:L], cut(xn), cut(xp), cut(xf), dn[:L].clone(), fz[:L]]
+    if L > 2:
+        state[4][1] = True
+        C[L - 1] = float("nan")
+    if not shared:
+        cdf = torch.as_tensor(np.geomspace(0.3, 30.0, L), dtype=dtype,
+                              device=u.device)
+        nodes = _map_nodes(lambda a: a.expand((L,) + a.shape).contiguous(),
+                           nodes)
+        for f in ("Cd_q", "Cd_p1", "Cd_p2", "Cd_End"):
+            setattr(nodes, f, getattr(nodes, f) * cdf[:, None])
+    n_nodes = u.shape[1]
+    assert fk.launch_shape(n_nodes, W, dtype)[:2] == (G, -(-W // G))
+    kw = dict(w=w[:W].contiguous(), dw=float(w[1] - w[0]), rho=physics.rho,
+              relax=0.8, nIter=physics.nIter, K=3)
+    before = fk.launches
+    out = fk.fused_block(nodes, u, C, M, B, Fr, Fi, tuple(state), **kw)
+    ref = fk.fused_block_reference(nodes, u, C, M, B, Fr, Fi, tuple(state),
+                                   **kw)
+    torch.cuda.synchronize()
+    assert fk.launches == before + 1
+    for k in (0, 4, 5):
+        assert torch.equal(out[k], ref[k])
+    for k in (1, 2, 3):
+        assert (out[k] - ref[k]).abs().max() <= tol * ref[k].abs().max()
+    if L > 2:
+        for a, b in zip(out, state):
+            assert torch.equal(a[1], b[1])
+        assert out[5][L - 1] and out[4][L - 1]
 
 
 def test_fused_kernel_refuses_shapes_it_was_not_built_for(cuda):

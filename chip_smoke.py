@@ -1,8 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py                      # every phase below
-    python3 chip_smoke.py --kernels            # phases 1-4 only
-    python3 chip_smoke.py --variants [PARENT]  # kernel variants, below
+    python3 chip_smoke.py
 
 Phases (each prints a line; any failure raises and exits non-zero):
 
@@ -10,22 +8,22 @@ Phases (each prints a line; any failure raises and exits non-zero):
 2. build of the CUDA kernels raft_tpu_torch/csrc/gj_solve.cu,
    fused_block.cu, tile_inv.cu and mm.cu (one nvcc each, started
    together, sm_90a), with the compiler's register report and the build
-   seconds, and (beside them) a copy of fused_block.cu with timestamps;
+   seconds;
 3. the Gauss-Jordan kernel against its plain PyTorch version on the card
    at the main path's shape [1536, 12, 13], in float64 and float32, with
    zero-diagonal systems (row swaps) and one NaN system, bit for bit; its
-   launch shape (CTAs and threads, every SM covered); the kernel's device
-   time (a CUDA graph of launches, without the host's cost of a call),
-   and the time of a call, the plain version and ``torch.linalg.solve``
-   (the yardstick; the port never calls it) by CUDA events; its bound;
+   launch shape (CTAs and threads, every SM covered); the time of a call,
+   the plain version's and ``torch.linalg.solve``'s (the yardstick; the
+   port never calls it) by CUDA events, the kernel's device time beside
+   them (a CUDA graph of launches, without the host's cost of a call);
+   its bound;
 4. the fused fixed-point block kernel against its plain version on the
    flagship's own prelude operands at rung 16, K = 4, float64 and
    float32, from the state after one block (lanes converge inside this
-   one) with one NaN lane; its cluster size and CTA count; device time
-   and call time as in 3, the plain version's and the port's torch
+   one) with one NaN lane; its cluster size and CTA count; call time and
+   device time as in 3, the plain version's and the port's torch
    waterfall block's (the nearest comparison: no single PyTorch call
-   computes this function), and the kernel's bound; then the split of a
-   trip into its phases, from the timestamped copy;
+   computes this function), and the kernel's bound;
 5. the legacy main path in float64: the flagship design (128
    frequencies x 12 JONSWAP cases) through ``Model(design)`` on the card
    — ``analyze_unloaded``, ``solve_eigen`` and ``analyze_cases`` twice;
@@ -72,22 +70,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
     with the same coefficients.
 
 The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the
-raft_tpu_torch package beside it, the script exits non-zero and prints no
-result.
-
-``--variants`` builds, beside the shipped gj_solve.cu and fused_block.cu,
-throwaway forms of both, each a few edits to the shipped sources
-(``GJ_VARIANTS``), and, given PARENT (a directory holding an earlier
-tree's raft_tpu_torch/), that tree's kernels; it checks each on phase 3's
-and 4's operands and prints their device and call times, taken in the
-order shipped, variants, variants reversed, shipped.
+``{"ok": true, "device": {...}}``.  In the kernel table ``ms`` is the
+time of one call from Python (as ``plain_ms`` and ``library_ms`` are
+taken); ``device_ms``, where given, the kernel's device time alone.
+Without CUDA, or without the raft_tpu_torch package beside it, the script
+exits non-zero and prints no result.
 """
 
-import ctypes
 import json
 import math
-import os
 import subprocess
 import sys
 import time
@@ -238,9 +229,9 @@ def gj_bound(dtype):
 
 def gj_kernel_phase(gk, dtype):
     """The kernel against its plain version, bit for bit (pivots and NaN
-    systems included); ``ms`` is the kernel's device time (a CUDA graph
-    of launches), ``call_ms`` the time of a call from Python, the way
-    ``plain_ms`` and ``library_ms`` are taken."""
+    systems included); ``ms`` is the time of a call from Python, the way
+    ``plain_ms`` and ``library_ms`` are taken, ``device_ms`` the kernel's
+    device time (a CUDA graph of launches)."""
     Mx = gj_inputs(dtype)
     out_k, piv_k = gk.gj_solve(Mx)
     out_p, piv_p = gk.gj_solve_reference(Mx)
@@ -267,20 +258,20 @@ def gj_kernel_phase(gk, dtype):
     A[5] = torch.eye(N, dtype=dtype, device="cuda")
     rhs = Mx[..., N:].clone()
     rhs[5] = 0.0
-    ms = graph_ms(lambda: gk.gj_solve(Mx), 50)
-    call_ms = cuda_ms(lambda: gk.gj_solve(Mx), 200)
+    ms = cuda_ms(lambda: gk.gj_solve(Mx), 200)
+    device_ms = graph_ms(lambda: gk.gj_solve(Mx), 50)
     plain_ms = cuda_ms(lambda: gk.gj_solve_reference(Mx), 20)
     library_ms = cuda_ms(lambda: torch.linalg.solve(A, rhs), 50)
     bound_ms, bound_by = gj_bound(dtype)
     print(f"phase gj kernel {dtype_name(dtype)}: [{B},{N},{M}] ctas={ctas} "
           f"threads_per_cta={threads} sms={sms} bit_identical=True "
           f"max_abs_err={err:.3e} NaN systems {nan_sys.tolist()} ms={ms:.5f}"
-          f" call_ms={call_ms:.5f} plain_ms={plain_ms:.5f} library_ms="
+          f" device_ms={device_ms:.5f} plain_ms={plain_ms:.5f} library_ms="
           f"{library_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by})",
           flush=True)
-    return dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                ctas=ctas, threads_per_cta=threads)
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, ctas=ctas, threads_per_cta=threads)
 
 
 # -------------------------------------------------------- fused kernel
@@ -316,8 +307,8 @@ def fused_operands(model, args, dtype):
 def fused_kernel_phase(fk, model, args, dtype, tol):
     """The kernel against its plain version: i / done / froze identical,
     the NaN lane quarantined, amplitudes within ``tol`` * max|x|; ``ms``
-    is the kernel's device time (a CUDA graph of launches), ``call_ms``
-    the time of a call from Python."""
+    is the time of a call from Python, ``device_ms`` the kernel's device
+    time (a CUDA graph of launches)."""
     nodes, ops, state, kw, torch_block = fused_operands(model, args, dtype)
     out_k = fk.fused_block(nodes, *ops, state, **kw)
     out_p = fk.fused_block_reference(nodes, *ops, state, **kw)
@@ -340,8 +331,9 @@ def fused_kernel_phase(fk, model, args, dtype, tol):
     G, per_cta, smem = fk.launch_shape(n_nodes, W, dtype)
     if G < 2:
         raise AssertionError(f"fused_block runs {G} CTA per lane at W={W}")
-    ms = graph_ms(lambda: fk.fused_block(nodes, *ops, state, **kw), 10)
-    call_ms = cuda_ms(lambda: fk.fused_block(nodes, *ops, state, **kw), 50)
+    ms = cuda_ms(lambda: fk.fused_block(nodes, *ops, state, **kw), 50)
+    device_ms = graph_ms(lambda: fk.fused_block(nodes, *ops, state, **kw),
+                         10)
     plain_ms = cuda_ms(
         lambda: fk.fused_block_reference(nodes, *ops, state, **kw), 5, 1)
     block_ms = cuda_ms(lambda: torch_block(nodes, *ops, state), 5, 1)
@@ -364,348 +356,13 @@ def fused_kernel_phase(fk, model, args, dtype, tol):
           f"lanes = {G * L} CTAs, {per_cta} frequencies and {smem} B of "
           f"shared memory per CTA lane_trips={lane_trips} "
           f"converged_in_block={newly} max_abs_err={err:.3e} (bar "
-          f"{tol:g}*max|x|={tol * x_max:.3e}) ms={ms:.5f} call_ms="
-          f"{call_ms:.5f} plain_ms={plain_ms:.5f} torch_block_ms="
+          f"{tol:g}*max|x|={tol * x_max:.3e}) ms={ms:.5f} device_ms="
+          f"{device_ms:.5f} plain_ms={plain_ms:.5f} torch_block_ms="
           f"{block_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}: "
           f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)", flush=True)
-    return dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                torch_block_ms=block_ms, bound_ms=bound_ms,
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, torch_block_ms=block_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None, cluster=G, ctas=G * L)
-
-
-# ------------------------------------------------ fused trip split
-
-# The fused kernel's trip split into its phases by %globaltimer stamps
-# that thread 0 of lane 0's rank-0 CTA takes in a copy of
-# csrc/fused_block.cu made for this measurement (the shipped kernel
-# carries no timing code): each pair is a line of the source and the line
-# with its stamps.  Stamps after a barrier include the wait for the
-# slowest thread (or CTA of the cluster).
-TRIP_STAMPS = (
-    ("if (!(it < a.nIter + 1) || dn) break;",
-     "if (!(it < a.nIter + 1) || dn) break; TRIP_STAMP(0);"),
-    ("cluster.sync();                             // partials",
-     "TRIP_STAMP(1); cluster.sync(); TRIP_STAMP(2);  // partials"),
-    ("// ---- 2. B_drag", "TRIP_STAMP(3);  // ---- 2. B_drag"),
-    ("    for (int fr = 0; fr < freq_rounds; ++fr) {\n"
-     "      const int f = fr * GROUPS + grp;\n      T acc[12];",
-     "    TRIP_STAMP(4);\n    for (int fr = 0; fr < freq_rounds; ++fr) {\n"
-     "      const int f = fr * GROUPS + grp;\n      T acc[12];"),
-    ("if (tid < 36) {", "TRIP_STAMP(5); if (tid < 36) {"),
-    ("// ---- 3. this CTA's systems",
-     "TRIP_STAMP(6);  // ---- 3. this CTA's systems"),
-    ("gj::eliminate<T, NSYS, 1>(x, NSYS, [](int, T) {});",
-     "TRIP_STAMP(7); gj::eliminate<T, NSYS, 1>(x, NSYS, [](int, T) {}); "
-     "TRIP_STAMP(8);"),
-    ("// ---- 4. convergence", "TRIP_STAMP(9);  // ---- 4. convergence"),
-    ("cluster.sync();                             // flags",
-     "TRIP_STAMP(10); cluster.sync(); TRIP_STAMP(11);  // flags"),
-    ("it += 1;", "TRIP_STAMP(12); it += 1;"),
-)
-TRIP_PHASES = ("partial RMS sums", "partials barrier",
-               "rank-order totals + Bmat", "B_drag partials", "drag force",
-               "B_drag sum", "assembly", "elimination", "solution store",
-               "convergence tests", "flags barrier", "relaxed update")
-N_STAMPS = len(TRIP_PHASES) + 1
-MAX_STAMPED_TRIPS = 16
-STAMP_PRELUDE = f"""
-__device__ unsigned long long trip_stamps[{MAX_STAMPED_TRIPS} * {N_STAMPS}];
-__device__ __forceinline__ unsigned long long trip_clock() {{
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}}
-#define TRIP_STAMP(p) \\
-  if (blockIdx.x == 0 && threadIdx.x == 0 && k < {MAX_STAMPED_TRIPS}) \\
-    trip_stamps[k * {N_STAMPS} + (p)] = trip_clock();
-"""
-STAMP_EPILOGUE = """
-extern "C" int fused_trip_stamps(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, trip_stamps, sizeof(trip_stamps));
-}
-"""
-
-
-def start_trip_stamp_build(fk):
-    """Write the stamped copy of the fused kernel's source into the build
-    directory and start compiling it; returns the build job."""
-    with open(fk.SOURCES[0]) as fh:
-        src = fh.read()
-    for old, new in TRIP_STAMPS:
-        if src.count(old) != 1:
-            raise AssertionError(f"fused_block.cu: stamp site {old!r} "
-                                 f"found {src.count(old)} times")
-        src = src.replace(old, new)
-    src = src.replace('#include "gj_elim.cuh"\n',
-                      '#include "gj_elim.cuh"\n' + STAMP_PRELUDE, 1)
-    return start_copy_build("trip_stamps", "fused_block.cu",
-                            src + STAMP_EPILOGUE, fk.HEADERS)
-
-
-def trip_split_phase(fk, model, args, dtype, stamped, launches=20):
-    """Per-phase microseconds of a trip of lane 0 (rank-0 CTA), averaged
-    over its trips in ``launches`` calls of the stamped kernel (``stamped``,
-    its library) on the fused kernel phase's operands; the stamped
-    kernel's device time beside the shipped one's shows what the stamps
-    cost."""
-    nodes, ops, state, kw, _ = fused_operands(model, args, dtype)
-    with swapped(fk, stamped) as lib:
-        buf = (ctypes.c_ulonglong * (MAX_STAMPED_TRIPS * N_STAMPS))()
-        sums = np.zeros(len(TRIP_PHASES))
-        n = 0
-        for _ in range(launches + 2):
-            out = fk.fused_block(nodes, *ops, state, **kw)
-            torch.cuda.synchronize()
-            if lib.fused_trip_stamps(buf) != 0:
-                raise AssertionError("reading the trip stamps failed")
-            trips = int(out[0][0] - state[0][0])
-            t = np.array(buf[:trips * N_STAMPS],
-                         dtype=np.float64).reshape(trips, N_STAMPS)
-            n += trips
-            sums += np.diff(t, axis=1).sum(axis=0)
-        if n == 0:
-            raise AssertionError("lane 0 ran no trip in the block")
-        stamped_ms = graph_ms(lambda: fk.fused_block(nodes, *ops, state, **kw),
-                              10)
-    ms = graph_ms(lambda: fk.fused_block(nodes, *ops, state, **kw), 10)
-    us = sums / n / 1e3
-    split = " ".join(f"{name.replace(' ', '_')}={v:.3f}"
-                     for name, v in zip(TRIP_PHASES, us))
-    print(f"phase fused trip split {dtype_name(dtype)}: lane 0 rank 0, "
-          f"{n} trips over {launches + 2} launches, us per trip: {split} "
-          f"trip_us={us.sum():.3f} stamped_ms={stamped_ms:.5f} "
-          f"ms={ms:.5f}", flush=True)
-    return dict(zip(TRIP_PHASES, us.tolist()))
-
-
-# ---------------------------------------------------- kernel variants
-
-# Throwaway forms of the fixed-point kernels, each a few changes to the
-# shipped sources (a file, a piece of it and its replacement), built into
-# copies of gj_elim.cuh, gj_solve.cu and fused_block.cu to time against
-# the shipped kernels in one run (``--variants``); a "probe_" form gives
-# other results, so its gj_solve is timed without a check and its
-# fused_block (whose trips would follow the wrong results) not at all:
-#   smem: the multipliers (column i) through shared memory, written once
-#     by lane i, instead of n - 1 shuffles;
-#   tree: the pivot search as a select tree over the column's keys and the
-#     row swap's read of row p as a select tree on the bits of p, instead
-#     of two chains along the rows;
-#   hsel: fused_block.cu's translate_entry with H's entries by select
-#     instead of a local 3x3 array indexed at run time;
-#   probe_nodiv: the division replaced by a product.
-_SHFL_FAC = """\
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      if (r == i || r >= n) continue;           // uniform across the warp
-      const T fac = __shfl_sync(full, x[0][r], i, GROUP);
-"""
-_SCAN = """\
-    unsigned long long best = pivot_key(abs_(x[0][i]), true);
-    int p = i;
-#pragma unroll
-    for (int r = i + 1; r < N; ++r) {
-      const unsigned long long k = pivot_key(abs_(x[0][r]), r < n);
-      if (k > best) { best = k; p = r; }
-    }
-"""
-_SWAP_READ = """\
-      T xp = xi;
-#pragma unroll
-      for (int r = i + 1; r < N; ++r) xp = (r == p) ? x[c][r] : xp;
-"""
-GJ_VARIANTS = {
-    "smem": (("gj_elim.cuh", _SHFL_FAC, """\
-    __shared__ T colbuf[64][N];                 // a column per group
-    T* cb = colbuf[threadIdx.x >> 4];
-    if ((threadIdx.x & (GROUP - 1)) == i) {
-#pragma unroll
-      for (int r = 0; r < N; ++r) cb[r] = x[0][r];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      if (r == i || r >= n) continue;           // uniform across the warp
-      const T fac = cb[r];
-"""), ("gj_elim.cuh", "    on_pivot(i, abs_(piv));\n",
-             "    __syncwarp();\n    on_pivot(i, abs_(piv));\n")),
-    "tree": (("gj_elim.cuh", _SCAN, """\
-    unsigned long long kk[N];
-    int pp[N];
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      kk[r] = pivot_key(abs_(x[0][r]), r >= i && r < n);
-      pp[r] = r;
-    }
-#pragma unroll
-    for (int h = 1; h < N; h <<= 1) {
-#pragma unroll
-      for (int r = 0; r + h < N; r += 2 * h)
-        if (kk[r + h] > kk[r]) { kk[r] = kk[r + h]; pp[r] = pp[r + h]; }
-    }
-    int p = pp[0];
-"""), ("gj_elim.cuh", _SWAP_READ, """\
-      T yy[N];
-#pragma unroll
-      for (int r = 0; r < N; ++r) yy[r] = x[c][r];
-#pragma unroll
-      for (int h = 1; h < N; h <<= 1) {
-#pragma unroll
-        for (int r = 0; r + h < N; r += 2 * h)
-          yy[r] = (p & h) ? yy[r + h] : yy[r];
-      }
-      const T xp = yy[0];
-""")),
-    "hsel": (("fused_block.cu", """\
-  const T H[3][3] = {{T(0), r[2], -r[1]}, {-r[2], T(0), r[0]},
-                     {r[1], -r[0], T(0)}};
-""", """\
-  auto H = [r](int i, int j) -> T {
-    if (i == j) return T(0);
-    const T v = r[3 - i - j];
-    return (j - i + 3) % 3 == 1 ? v : -v;
-  };
-"""), ("fused_block.cu", "mul_rn(H[a - 3][j], Bm[j * 3 + k])",
-              "mul_rn(H(a - 3, j), Bm[j * 3 + k])"),
-             ("fused_block.cu", "mul_rn(hb, H[b - 3][k])",
-              "mul_rn(hb, H(b - 3, k))"),
-             ("fused_block.cu", "mul_rn(Bm[i * 3 + k], H[k][j])",
-              "mul_rn(Bm[i * 3 + k], H(k, j))")),
-    # timing only (wrong bits): the division replaced by a product
-    "probe_nodiv": (("gj_elim.cuh", "row[c] = div_rn(x[c][i], piv);",
-                     "row[c] = mul_rn(x[c][i], piv);"),),
-}
-
-
-def write_copy(tag, name, src):
-    """Write ``src`` as ``name`` into build/raft_tpu_torch/<tag>/; returns
-    its path."""
-    from raft_tpu_torch.kernels import _build
-
-    d = os.path.join(_build.BUILD_DIR, tag)
-    os.makedirs(d, exist_ok=True)
-    path = os.path.join(d, name)
-    with open(path, "w") as fh:
-        fh.write(src)
-    return path
-
-
-def start_copy_build(tag, name, src, headers):
-    """Write ``src`` as ``name`` into build/raft_tpu_torch/<tag>/ and start
-    compiling it there (a header it includes by quotes is looked up in
-    that directory first, then in csrc/); returns the build job."""
-    from raft_tpu_torch.kernels import _build
-
-    path = write_copy(tag, name, src)
-    return _build.start(path, headers, os.path.dirname(path), _build.nvcc())
-
-
-class swapped:
-    """Run a kernel module's wrapper on another build of its kernel: the
-    module's library is ``lib`` inside the block."""
-
-    def __init__(self, module, lib):
-        self.module, self.lib = module, lib
-
-    def __enter__(self):
-        self.saved = self.module._lib
-        self.module._lib = self.lib
-        return self.lib
-
-    def __exit__(self, *exc):
-        self.module._lib = self.saved
-
-
-def start_variant_builds(gk, fk, parent):
-    """Start the builds of every variant: {name: (gj job, fused job)};
-    ``parent`` (a directory holding an earlier raft_tpu_torch/) adds its
-    kernels as "parent"."""
-    def read(path):
-        with open(path) as fh:
-            return fh.read()
-
-    sources = {}
-    if parent:
-        csrc = os.path.join(parent, "raft_tpu_torch", "csrc")
-        sources["parent"] = (read(os.path.join(csrc, "gj_elim.cuh")),
-                             read(os.path.join(csrc, "gj_solve.cu")),
-                             read(os.path.join(csrc, "fused_block.cu")))
-    files = ("gj_elim.cuh", "gj_solve.cu", "fused_block.cu")
-    shipped = [read(path) for path in (gk.HEADERS[0], gk.SOURCES[0],
-                                        fk.SOURCES[0])]
-    for name, edits in GJ_VARIANTS.items():
-        srcs = list(shipped)
-        for f, old, new in edits:
-            k = files.index(f)
-            if srcs[k].count(old) != 1:
-                raise AssertionError(f"{f}: variant {name}: {old!r} found "
-                                     f"{srcs[k].count(old)} times")
-            srcs[k] = srcs[k].replace(old, new)
-        sources[name] = tuple(srcs)
-    jobs = {}
-    for name, (header, gj_src, fused_src) in sources.items():
-        hdr = (write_copy(name, "gj_elim.cuh", header),)
-        jobs[name] = (start_copy_build(name, "gj_solve.cu", gj_src, hdr),
-                      start_copy_build(name, "fused_block.cu", fused_src,
-                                       hdr))
-    return jobs
-
-
-def variants_phase(gk, fk, model, args, jobs):
-    """Each variant's gj_solve and fused_block against the shipped ones on
-    the kernel phases' operands, in the order shipped, variants, variants
-    reversed, shipped: bits (gj_solve) or flags and bars (fused_block)
-    checked on each, device time (CUDA graph) and call time."""
-    from raft_tpu_torch.kernels import _build
-
-    libs = {name: (gk.bind(_build.finish(gj)), fk.bind(_build.finish(fu)))
-            for name, (gj, fu) in jobs.items()}
-    libs["shipped"] = (gk.build(), fk.build())
-    names = list(jobs)
-    order = ["shipped", *names, *reversed(names), "shipped"]
-    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        Mx = gj_inputs(dtype)
-        ref, piv_ref = gk.gj_solve_reference(Mx)
-        nodes, ops, state, kw, _ = fused_operands(model, args, dtype)
-        fref = fk.fused_block_reference(nodes, *ops, state, **kw)
-        x_max = max(fref[k].abs().max().item() for k in (1, 2, 3))
-        times = {name: [] for name in libs}
-        for name in order:
-            glib, flib = libs[name]
-            checked = not name.startswith("probe")
-            with swapped(gk, glib):
-                out, piv = gk.gj_solve(Mx)
-                for a, b in ((out, ref), (piv, piv_ref)):
-                    fin = ~torch.isnan(b)
-                    if checked and not (torch.equal(torch.isnan(a), ~fin)
-                                        and torch.equal(a[fin], b[fin])):
-                        raise AssertionError(f"{name} gj_solve {dtype}: "
-                                             "bits differ")
-                g = (graph_ms(lambda: gk.gj_solve(Mx), 50),
-                     cuda_ms(lambda: gk.gj_solve(Mx), 200))
-            if not checked:           # its trips follow its wrong results
-                times[name].append(g + (math.nan, math.nan))
-                continue
-            with swapped(fk, flib):
-                fo = fk.fused_block(nodes, *ops, state, **kw)
-                err = max((fo[k] - fref[k]).abs().max().item()
-                          for k in (1, 2, 3))
-                if not (all(torch.equal(fo[k], fref[k]) for k in (0, 4, 5))
-                        and err <= tol * x_max):
-                    raise AssertionError(f"{name} fused_block {dtype}: "
-                                         f"flags or max|d| {err}")
-                f = (graph_ms(lambda: fk.fused_block(nodes, *ops, state,
-                                                     **kw), 10),
-                     cuda_ms(lambda: fk.fused_block(nodes, *ops, state,
-                                                    **kw), 50))
-            times[name].append(g + f)
-        for name, rows in times.items():
-            cols = " ".join(f"{k}={'/'.join(f'{r[i]:.5f}' for r in rows)}"
-                            for i, k in enumerate(
-                                ("gj_ms", "gj_call_ms", "fused_ms",
-                                 "fused_call_ms")))
-            print(f"phase variants {dtype_name(dtype)}: {name} {cols}",
-                  flush=True)
 
 
 # ---------------------------------------------------------- main paths
@@ -1179,13 +836,7 @@ def bem_main_path_phase(rt, gk, bg, Timers, model):
           f"xi_rel_vs_cpu={xi_rel:.3e} {split(times)}", flush=True)
 
 
-
 def main():
-    argv = sys.argv[1:]
-    mode = argv[0] if argv else None
-    if mode not in (None, "--kernels", "--variants") or len(argv) > (
-            2 if mode == "--variants" else 1):
-        sys.exit("usage: chip_smoke.py [--kernels | --variants [PARENT]]")
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs an NVIDIA card")
@@ -1196,33 +847,20 @@ def main():
     print(card, flush=True)
 
     import raft_tpu_torch as rt
-    from raft_tpu_torch.kernels import _build
     from raft_tpu_torch.kernels import bem_gj as bg
     from raft_tpu_torch.kernels import fused_block as fk
     from raft_tpu_torch.kernels import gj_solve as gk
     from raft_tpu_torch.utils.profiling import Timers
 
-    if mode == "--variants":
-        variant_jobs = start_variant_builds(gk, fk, (argv[1:] or [None])[0])
-    else:
-        stamp_job = start_trip_stamp_build(fk)
-    build_phase((gk, fk) if mode else (gk, fk, bg))
+    build_phase((gk, fk, bg))
+    g64 = gj_kernel_phase(gk, torch.float64)
+    gj_kernel_phase(gk, torch.float32)
+
     prep = rt.Model(flagship(rt))
     prep.analyze_unloaded()
     args, _ = prep.prepare_case_inputs(verbose=False)
-    if mode == "--variants":
-        variants_phase(gk, fk, prep, args, variant_jobs)
-        return
-    stamped = fk.bind(_build.finish(stamp_job))
-
-    g64 = gj_kernel_phase(gk, torch.float64)
-    gj_kernel_phase(gk, torch.float32)
     f64 = fused_kernel_phase(fk, prep, args, torch.float64, 1e-12)
     fused_kernel_phase(fk, prep, args, torch.float32, 1e-5)
-    for dtype in (torch.float64, torch.float32):
-        trip_split_phase(fk, prep, args, dtype, stamped)
-    if mode == "--kernels":
-        return
 
     legacy, l_leg = legacy_phases(rt, Timers)
     l_wf, l_fu = engine_phases(rt, Timers, legacy)

@@ -463,9 +463,9 @@ fused_block_kernel(const Args<T> a) {
     for (int fr = 0; fr < freq_rounds; ++fr) {
       const int f = fr * GROUPS + grp;
       const bool live = f < nf;
-      T x[1][NSYS];
+      T x[NSYS];
 #pragma unroll
-      for (int d = 0; d < NSYS; ++d) x[0][d] = T(0);
+      for (int d = 0; d < NSYS; ++d) x[d] = T(0);
       if (live && j < NSYS) {
         const T wv = wv_[f];
         const T nw2 = -mul_rn(wv, wv);
@@ -474,22 +474,22 @@ fused_block_kernel(const Args<T> a) {
         for (int d = 0; d < 6; ++d) {
           const T zr = add_rn(mul_rn(nw2, M[36L * f + 6 * d + c]), C[6 * d + c]);
           const T zi = mul_rn(wv, add_rn(B[36L * f + 6 * d + c], Bd[6 * d + c]));
-          x[0][d] = j < 6 ? zr : -zi;
-          x[0][6 + d] = j < 6 ? zi : zr;
+          x[d] = j < 6 ? zr : -zi;
+          x[6 + d] = j < 6 ? zi : zr;
         }
       } else if (live && j == NAUG - 1) {
 #pragma unroll
         for (int d = 0; d < 6; ++d) {
-          x[0][d] = add_rn(Fd[12 * f + d], Fr[6L * f + d]);
-          x[0][6 + d] = add_rn(Fd[12 * f + 6 + d], Fi[6L * f + d]);
+          x[d] = add_rn(Fd[12 * f + d], Fr[6L * f + d]);
+          x[6 + d] = add_rn(Fd[12 * f + 6 + d], Fi[6L * f + d]);
         }
       }
-      gj::eliminate<T, NSYS, 1>(x, NSYS, [](int, T) {});
+      gj::eliminate<T, NSYS>(x, NSYS, [](int, T) {});
       if (live && j == NAUG - 1) {
 #pragma unroll
         for (int d = 0; d < 6; ++d) {
-          Xr[d * F + f] = x[0][d];
-          Xi[d * F + f] = x[0][6 + d];
+          Xr[d * F + f] = x[d];
+          Xi[d * F + f] = x[6 + d];
         }
       }
     }

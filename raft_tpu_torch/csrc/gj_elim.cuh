@@ -5,9 +5,9 @@
 // It is the step of the TPU kernels' one-hot elimination
 // raft_tpu/pallas_kernels.py:102-125 (_gj_elim_body), which
 // gauss_solve_pallas (:150) and _fused_fp_kernel (:275) run.  A group of
-// GJ_GROUP = 16 lanes owns one system [n, m] (n <= N rows, m <= 16 C
-// columns); lane j holds column j (and j + 16, ... for C > 1) in
-// registers, x[c][r] = row r of its column c.  n steps of
+// W lanes (GROUP = 16, or the whole warp of 32 for systems wider than 16
+// columns) owns one system [n, m] (n <= N rows, m <= W columns); lane j
+// holds column j in registers, x[r] = row r of its column.  n steps of
 //
 //   p    = argmax_{r >= i} |x_r[i]|   (first index wins ties; NaN is the
 //                                       largest, as with jnp.argmax)
@@ -39,8 +39,9 @@
 // the chain.
 //
 // Every shuffle runs with the full warp mask: the caller keeps the call
-// warp-uniform (both half-warps call it together, with the same n), and
-// lanes past m (or of a system that does not exist) carry zeros.
+// warp-uniform (with W = 16 both half-warps call it together, with the
+// same n), and lanes past m (or of a system that does not exist) carry
+// zeros.
 
 #pragma once
 
@@ -77,51 +78,45 @@ __device__ __forceinline__ unsigned long long pivot_key(float a, bool ok) {
   return ok ? b + 1ull : 0;
 }
 
-// Eliminate the system whose columns this lane holds (see the note at the
-// top).  on_pivot(i, |pivot|) is called by every lane at every step i
-// (the value is the same across the group).
-template <typename T, int N, int C, typename PivotFn>
-__device__ __forceinline__ void eliminate(T (&x)[C][N], int n,
+// Eliminate the system whose column this lane holds (see the note at the
+// top), W lanes to a system.  on_pivot(i, |pivot|) is called by every
+// lane at every step i (the value is the same across the group).
+template <typename T, int N, int W = GROUP, typename PivotFn>
+__device__ __forceinline__ void eliminate(T (&x)[N], int n,
                                           PivotFn on_pivot) {
+  static_assert(W == 16 || W == 32, "a group is a half-warp or a warp");
   const unsigned full = 0xffffffffu;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     if (i >= n) break;                          // uniform across the warp
     // pivot row: lane i scans column i (every lane scans its own column,
     // and lane i's result is the one taken)
-    unsigned long long best = pivot_key(abs_(x[0][i]), true);
+    unsigned long long best = pivot_key(abs_(x[i]), true);
     int p = i;
 #pragma unroll
     for (int r = i + 1; r < N; ++r) {
-      const unsigned long long k = pivot_key(abs_(x[0][r]), r < n);
+      const unsigned long long k = pivot_key(abs_(x[r]), r < n);
       if (k > best) { best = k; p = r; }
     }
-    p = __shfl_sync(full, p, i, GROUP);
-    // swap rows i and p of every column held
+    p = __shfl_sync(full, p, i, W);
+    // swap rows i and p of the column held
+    const T xi = x[i];
+    T xp = xi;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const T xi = x[c][i];
-      T xp = xi;
+    for (int r = i + 1; r < N; ++r) xp = (r == p) ? x[r] : xp;
 #pragma unroll
-      for (int r = i + 1; r < N; ++r) xp = (r == p) ? x[c][r] : xp;
-#pragma unroll
-      for (int r = i + 1; r < N; ++r) x[c][r] = (r == p) ? xi : x[c][r];
-      x[c][i] = xp;
-    }
-    const T piv = __shfl_sync(full, x[0][i], i, GROUP);
-    T row[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) row[c] = div_rn(x[c][i], piv);
+    for (int r = i + 1; r < N; ++r) x[r] = (r == p) ? xi : x[r];
+    x[i] = xp;
+    const T piv = __shfl_sync(full, x[i], i, W);
+    const T row = div_rn(x[i], piv);
     // the multipliers are column i after the swap, held by lane i
 #pragma unroll
     for (int r = 0; r < N; ++r) {
       if (r == i || r >= n) continue;           // uniform across the warp
-      const T fac = __shfl_sync(full, x[0][r], i, GROUP);
-#pragma unroll
-      for (int c = 0; c < C; ++c) x[c][r] = sub_rn(x[c][r], mul_rn(fac, row[c]));
+      const T fac = __shfl_sync(full, x[r], i, W);
+      x[r] = sub_rn(x[r], mul_rn(fac, row));
     }
-#pragma unroll
-    for (int c = 0; c < C; ++c) x[c][i] = row[c];
+    x[i] = row;
     on_pivot(i, abs_(piv));
   }
 }

@@ -17,16 +17,17 @@
 //
 // Design.  The elimination of one system is gj::eliminate in
 // gj_elim.cuh (shared with fused_block.cu): a group of 16 lanes owns one
-// system (two systems per warp), lane j holds column j in registers (and
-// column j + 16 when m > 16), the pivot search is lane i's scan of its
+// system (two systems per warp; a whole warp when m > 16), lane j holds
+// column j in registers, the pivot search is lane i's scan of its
 // own column, each lane divides once per step, and the update is rounded
 // as a product then a difference, never a fused multiply-add, so the
 // kernel gives the same bits as the plain PyTorch version of the step.
 // Lane j loads and stores column j of each row, so lanes 0..m-1 of a
 // group touch consecutive addresses.  The main path's shape, n = 12 and
 // m = 13, has its own instantiation with both known at compile time;
-// other shapes take the generic one (n <= 16, one or two columns per
-// lane).  CTAs of 64 threads (4 systems), so the main path's 1536
+// other shapes take the generic one (n <= 16, a half-warp per system up
+// to 16 columns, a warp up to 32).  CTAs of 64 threads (4 systems), so
+// the main path's 1536
 // systems make 384 CTAs and put work on every one of the card's 132 SMs;
 // a grid-stride loop covers batches beyond the grid's cap.
 //
@@ -44,7 +45,8 @@
 // Measured (chip_smoke.py on an H100 80GB HBM3 at 700 W; docs/torch_port.md
 // section 6): 0.0073 ms in f64 and 0.0057 ms in f32 of device time,
 // against 0.0564 / 0.0376 ms for the row-per-lane form in the same run;
-// 60 registers in f64, 32 in f32, no spills.  Of the f64 time about
+// 60 registers in f64, 32 in f32, no spills (the generic forms 110-116
+// in f64, 96-112 in f32, no spills).  Of the f64 time about
 // 0.002 ms is the chain of 12 divisions (a build with the division
 // replaced by a product takes 0.0055 ms); the rest is the step's other
 // latencies and issue (some 250 instructions per warp and step, counted
@@ -54,7 +56,8 @@
 //
 // C interface: gj_solve_f64 / gj_solve_f32 launch on the given stream and
 // return cudaGetLastError() (0 = launched); gj_solve_shape reports the
-// launch shape (CTAs, threads per CTA) for a batch size.
+// launch shape (CTAs, threads per CTA) for a batch size and column
+// count.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,58 +68,55 @@ namespace {
 
 constexpr int MAXN = 16;
 constexpr int MAXM = 32;
-constexpr int THREADS = 64;                     // 4 systems per CTA
-constexpr int SYSTEMS_PER_CTA = THREADS / gj::GROUP;
+constexpr int THREADS = 64;                     // 4 systems per CTA (2 if m > 16)
 constexpr long MAX_CTAS = 1L << 20;             // the grid-stride loop covers the rest
 
-// Systems of n <= N rows and m <= 16 C columns; a shape fixed at compile
-// time passes its m as M (then n = N, m = M), the generic one M = 0.
-template <typename T, int N, int C, int M>
+// Systems of n <= N rows and m <= W columns, W lanes to a system; a shape
+// fixed at compile time passes its m as M (then n = N, m = M), the
+// generic one M = 0.
+template <typename T, int N, int W, int M>
 __global__ void __launch_bounds__(THREADS)
 gj_solve_kernel(const T* __restrict__ in, T* __restrict__ out,
                 T* __restrict__ piv_out, int B, int n_arg, int m_arg) {
+  constexpr int PER_WARP = 32 / W;              // systems per warp
   const int n = M ? N : n_arg;
   const int m = M ? M : m_arg;
   const int lane = threadIdx.x & 31;
-  const int j = lane & (gj::GROUP - 1);         // column held by this lane
-  const int half = lane >> 4;                   // system within the warp
+  const int j = lane & (W - 1);                 // column held by this lane
+  const int slot = lane / W;                    // system within the warp
   const long warp = ((long)blockIdx.x * THREADS + threadIdx.x) >> 5;
   const long nwarps = ((long)gridDim.x * THREADS) >> 5;
 
   // the loop bound is uniform across the warp, so every shuffle below
   // runs with all 32 lanes; lanes past B or m carry zeros and never write
-  for (long base = 2 * warp; base < B; base += 2 * nwarps) {
-    const long sys = base + half;
+  for (long base = PER_WARP * warp; base < B; base += PER_WARP * nwarps) {
+    const long sys = base + slot;
     const bool live = sys < B;
     const T* src = in + sys * n * m;
-    T x[C][N];
+    T x[N];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int col = j + gj::GROUP * c;
-#pragma unroll
-      for (int r = 0; r < N; ++r)
-        x[c][r] = (live && r < n && col < m) ? src[r * m + col] : T(0);
-    }
+    for (int r = 0; r < N; ++r)
+      x[r] = (live && r < n && j < m) ? src[r * m + j] : T(0);
 
-    gj::eliminate<T, N, C>(x, n, [&](int i, T apiv) {
+    gj::eliminate<T, N, W>(x, n, [&](int i, T apiv) {
       if (j == 0 && live) piv_out[sys * n + i] = apiv;
     });
 
     T* dst = out + sys * n * m;
+    if (live && j < m) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int col = j + gj::GROUP * c;
-      if (live && col < m) {
-#pragma unroll
-        for (int r = 0; r < N; ++r)
-          if (r < n) dst[r * m + col] = x[c][r];
-      }
+      for (int r = 0; r < N; ++r)
+        if (r < n) dst[r * m + j] = x[r];
     }
   }
 }
 
-long ctas_for(int B) {
-  const long ctas = ((long)B + SYSTEMS_PER_CTA - 1) / SYSTEMS_PER_CTA;
+// lanes per system for m columns
+int group_for(int m) { return m <= gj::GROUP ? gj::GROUP : 32; }
+
+long ctas_for(int B, int m) {
+  const int per_cta = THREADS / group_for(m);
+  const long ctas = ((long)B + per_cta - 1) / per_cta;
   return ctas < MAX_CTAS ? ctas : MAX_CTAS;
 }
 
@@ -126,15 +126,15 @@ int launch(const T* in, T* out, T* piv, int B, int n, int m,
   if (B < 0 || n < 1 || n > MAXN || m < n || m > MAXM)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const dim3 grid((unsigned)ctas_for(B));
+  const dim3 grid((unsigned)ctas_for(B, m));
   if (n == 12 && m == 13)                       // the main path's systems
-    gj_solve_kernel<T, 12, 1, 13><<<grid, THREADS, 0, stream>>>(
+    gj_solve_kernel<T, 12, gj::GROUP, 13><<<grid, THREADS, 0, stream>>>(
         in, out, piv, B, n, m);
   else if (m <= gj::GROUP)
-    gj_solve_kernel<T, MAXN, 1, 0><<<grid, THREADS, 0, stream>>>(
+    gj_solve_kernel<T, MAXN, gj::GROUP, 0><<<grid, THREADS, 0, stream>>>(
         in, out, piv, B, n, m);
   else
-    gj_solve_kernel<T, MAXN, 2, 0><<<grid, THREADS, 0, stream>>>(
+    gj_solve_kernel<T, MAXN, 32, 0><<<grid, THREADS, 0, stream>>>(
         in, out, piv, B, n, m);
   return (int)cudaGetLastError();
 }
@@ -151,9 +151,9 @@ extern "C" int gj_solve_f32(const float* in, float* out, float* piv,
   return launch<float>(in, out, piv, B, n, m, (cudaStream_t)stream);
 }
 
-extern "C" int gj_solve_shape(int B, int* ctas, int* threads) {
-  if (B < 0) return (int)cudaErrorInvalidValue;
-  *ctas = (int)ctas_for(B);
+extern "C" int gj_solve_shape(int B, int m, int* ctas, int* threads) {
+  if (B < 0 || m < 1 || m > MAXM) return (int)cudaErrorInvalidValue;
+  *ctas = (int)ctas_for(B, m);
   *threads = THREADS;
   return 0;
 }

@@ -96,17 +96,7 @@ def build(verbose=False, job=None):
     global _lib
     if _lib is not None and not verbose and job is None:
         return _lib
-    lib = bind(_build.finish(job or start_build(verbose), verbose))
-    lib.fused_block_shape.argtypes = [_INT, _INT, _INT,
-                                      *(ctypes.POINTER(_INT),) * 3]
-    lib.fused_block_shape.restype = _INT
-    _lib = lib
-    return lib
-
-
-def bind(lib):
-    """Declare the kernel entry points' C signatures on ``lib`` (any build
-    of a source with the C interface of ``csrc/fused_block.cu``)."""
+    lib = _build.finish(job or start_build(verbose), verbose)
     for name in ("fused_block_f64", "fused_block_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
@@ -115,6 +105,10 @@ def bind(lib):
                        ctypes.c_double, ctypes.c_double, ctypes.c_double,
                        ctypes.c_double, _INT, _INT, ctypes.c_void_p]
         fn.restype = _INT
+    lib.fused_block_shape.argtypes = [_INT, _INT, _INT,
+                                      *(ctypes.POINTER(_INT),) * 3]
+    lib.fused_block_shape.restype = _INT
+    _lib = lib
     return lib
 
 

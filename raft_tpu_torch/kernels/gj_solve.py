@@ -51,32 +51,29 @@ def build(verbose=False, job=None):
     global _lib
     if _lib is not None and not verbose and job is None:
         return _lib
-    lib = bind(_build.finish(job or start_build(verbose), verbose))
-    lib.gj_solve_shape.argtypes = [_INT, ctypes.POINTER(_INT),
+    lib = _build.finish(job or start_build(verbose), verbose)
+    for name in ("gj_solve_f64", "gj_solve_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       _INT, _INT, _INT, ctypes.c_void_p]
+        fn.restype = _INT
+    lib.gj_solve_shape.argtypes = [_INT, _INT, ctypes.POINTER(_INT),
                                    ctypes.POINTER(_INT)]
     lib.gj_solve_shape.restype = _INT
     _lib = lib
     return lib
 
 
-def bind(lib):
-    """Declare the kernel entry points' C signatures on ``lib`` (any build
-    of a source with the C interface of ``csrc/gj_solve.cu``)."""
-    for name in ("gj_solve_f64", "gj_solve_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       _INT, _INT, _INT, ctypes.c_void_p]
-        fn.restype = _INT
-    return lib
-
-
-def launch_shape(B):
+def launch_shape(B, m=13):
     """``(CTAs, threads per CTA)`` of the kernel's launch for ``B``
-    systems (builds the kernel)."""
+    systems of ``m`` columns (builds the kernel): a half-warp per system
+    up to 16 columns, a warp beyond."""
     ctas, threads = _INT(), _INT()
-    rc = build().gj_solve_shape(B, ctypes.byref(ctas), ctypes.byref(threads))
+    rc = build().gj_solve_shape(B, m, ctypes.byref(ctas),
+                                ctypes.byref(threads))
     if rc != 0:
-        raise ValueError(f"gj_solve takes B >= 0, got {B}")
+        raise ValueError(f"gj_solve takes B >= 0 and 1 <= m <= {MAX_M}, "
+                         f"got B={B}, m={m}")
     return ctas.value, threads.value
 
 

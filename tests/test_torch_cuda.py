@@ -40,7 +40,7 @@ def cuda():
                                    (101, 16, 32), (64, 12, 14), (65, 12, 17)])
 def test_kernel_matches_plain_version(cuda, dtype, B, n, m):
     """Odd batch sizes leave half a warp idle; n = 16, m = 32 are the
-    kernel's limits (two columns per lane above m = 16).  [1536, 12, 13]
+    kernel's limits (a warp per system above m = 16).  [1536, 12, 13]
     takes the instantiation specialised to the main path's shape, the
     others the generic one.  Row swaps from the first step on, one NaN
     system."""
@@ -70,6 +70,7 @@ def test_gj_launch_shape_covers_every_sm(cuda):
     assert (ctas, threads) == (384, 64)
     assert ctas >= sms
     assert gk.launch_shape(0) == (0, 64)
+    assert gk.launch_shape(1536, 32) == (768, 64)   # a warp per system
 
 
 def test_gauss_solve_on_the_card_solves(cuda):

@@ -27,8 +27,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
 5. the legacy main path in float64: the flagship design (128
    frequencies x 12 JONSWAP cases) through ``Model(design)`` on the card
    — ``analyze_unloaded``, ``solve_eigen`` and ``analyze_cases`` twice;
-   the second, warm call is timed and its kernel launches counted, and
-   its response is held against the same port run on the CPU;
+   the second, warm call is timed (host prep / dynamics) and its kernel
+   launches counted, and its response is held against the same port run
+   on the CPU; the warm host prep is printed beside its time with the
+   catenary under torch.func, and the warm call beside raft_tpu's warm
+   ``analyze_cases`` on a CPU;
 6. the legacy main path in float32 on the card, RAO L-inf against the
    float64 card run;
 7. ``analyze_cases(fixed_point="waterfall")``, float64: Xi and every
@@ -45,6 +48,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
 10. mixed precision with float32 working dtype in the waterfall mode:
     RAO against the same policy on the CPU (within 1e-4) and against
     the float64 card run (printed; the policy's own error);
+10a. the aero main path: ``demo_semi_aero`` (the semi with the rotor,
+    aeroServoMod 2, 128 frequencies x 12 cases, six of them with wind at
+    8..18 m/s) through ``Model(design)`` on the card — ``analyze_unloaded``
+    and ``analyze_cases`` cold, then warm in the legacy, waterfall and
+    fused modes, each timed (host prep / dynamics) with its kernel
+    launches counted: the waterfall bit-identical to legacy, the fused
+    mode with identical flags and Xi within rtol 1e-8 / atol 1e-12, and
+    Xi and every rotor channel within 1e-8 of the same port run on the
+    CPU;
 11. the BEM solve's pivot-tile inverse kernel (one thread-block cluster
     per tile; its cluster size and shared memory per CTA printed) against
     its plain version at [512, 512] in float32 and float64 with a row swap
@@ -112,6 +124,18 @@ N_TILE = 512
 # alike by tests/torch_mp_policy_linf.py: 4.24e-2 (docs/torch_port.md
 # section 6)
 MP_POLICY_LINF = 5e-2
+# printed beside the flagship's warm legacy call: its host prep on an H100
+# while the catenary Newton ran under torch.func transforms, and the mark
+# for the whole call, raft_tpu's warm analyze_cases of the flagship on a
+# CPU (docs/torch_port.md section 5 has both; tests/torch_host_prep_
+# timing.py measures raft_tpu's on the host it runs on)
+HOST_PREP_FUNCTORCH_S = "0.69-1.32"
+RAFT_TPU_CPU_ANALYZE_S = 0.175
+# the rotor's output channels (raft_tpu_torch/model.py _save_case_outputs)
+ROTOR_CHANNELS = ("omega_avg", "omega_std", "omega_max", "omega_PSD",
+                  "torque_avg", "torque_std", "torque_PSD", "power_avg",
+                  "bPitch_avg", "bPitch_std", "bPitch_PSD", "wind_PSD",
+                  "Mbase_avg", "Mbase_std", "Mbase_PSD")
 
 
 def card_line():
@@ -124,6 +148,11 @@ def card_line():
 
 def flagship(rt):
     return rt.designs.flagship(0.00625, 0.8, 12)
+
+
+def aero_design(rt):
+    return rt.designs.demo_semi_aero(n_cases=12, n_wind=6,
+                                     nw_settings=(0.00625, 0.8))
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -400,7 +429,9 @@ def rao_linf_rel(model, ref):
 
 def split(times):
     return (f"analyze_cases_s={times['analyze_cases']:.4f} host_prep_s="
-            f"{times['case_prep']:.4f} dynamics_s={times['rao_solve']:.4f}")
+            f"{times['case_prep']:.4f} (mooring_s="
+            f"{times['mooring_offsets']:.4f}) dynamics_s="
+            f"{times['rao_solve']:.4f}")
 
 
 def same_report(a, b):
@@ -431,7 +462,10 @@ def legacy_phases(rt, Timers):
     print(f"phase main f64: nw={model.nw} cases={model.Xi.shape[0]} "
           f"eigen_hz={np.round(fns, 5).tolist()} trips={trips} "
           f"gj_launches={launches['gj_solve']} {split(times)} "
-          f"xi_rel_vs_cpu={xi_rel:.3e} iters={rep.iters.tolist()}",
+          f"xi_rel_vs_cpu={xi_rel:.3e} iters={rep.iters.tolist()} "
+          f"host_prep_with_functorch_catenary_s={HOST_PREP_FUNCTORCH_S} "
+          f"raft_tpu_cpu_analyze_cases_s={RAFT_TPU_CPU_ANALYZE_S} "
+          f"below_it={times['analyze_cases'] < RAFT_TPU_CPU_ANALYZE_S}",
           flush=True)
 
     m32, _, launches32, times32 = run_main_path(rt, Timers,
@@ -589,6 +623,90 @@ def mixed_precision_phase(rt, Timers, legacy):
     print(f"phase mixed f32: rao_linf_rel_vs_cpu_same_policy={vs_cpu:.3e} "
           f"rao_linf_rel_vs_f64={vs_f64:.3e} iters="
           f"{mp.solve_report.iters.tolist()} {split(times)}", flush=True)
+
+
+def aero_phase(rt, Timers):
+    """The aero main path on the card in the three fixed-point modes (one
+    Model; each warm call with the launch counts set to 0 just before it),
+    held against the same port run on the CPU."""
+    from raft_tpu_torch.kernels import fused_block as fk
+    from raft_tpu_torch.kernels import gj_solve as gk
+    from raft_tpu_torch.waterfall import last_dispatch_stats
+
+    model = rt.Model(aero_design(rt))
+    model.analyze_unloaded()
+    model.analyze_cases()
+    n_wind = int((model.results["means"]["aero force"][:, 0] != 0).sum())
+    if model.rotor is None or model.Xi.shape != (12, 6, 128) or n_wind != 6:
+        raise AssertionError(f"aero design did not run: {model.Xi.shape}, "
+                             f"{n_wind} wind cases")
+    out = {}
+    for mode in ("legacy", "waterfall", "fused"):
+        gk.launches = fk.launches = 0
+        with Timers() as tm:
+            with tm.time("analyze_cases"):
+                model.analyze_cases(fixed_point=mode)
+        out[mode] = dict(
+            Xi=model.Xi.copy(), report=model.solve_report,
+            launches=dict(gj_solve=gk.launches, fused_block=fk.launches),
+            times={k: v["total_s"] for k, v in tm.report().items()},
+            metrics={k: v.copy() for k, v in
+                     model.results["case_metrics"].items()},
+            stats=last_dispatch_stats() if mode != "legacy" else None)
+    leg, wf, fu = out["legacy"], out["waterfall"], out["fused"]
+    rep = leg["report"]
+    trips = int(rep.iters.max())
+    if not rep.converged.all() or rep.nonfinite.any():
+        raise AssertionError(f"unhealthy aero cases: {rep}")
+    if not np.isfinite(leg["Xi"]).all():
+        raise AssertionError("non-finite aero response")
+    if leg["launches"] != dict(gj_solve=trips + LADDER_SOLVES,
+                               fused_block=0):
+        raise AssertionError(f"aero legacy launches {leg['launches']}")
+    if not (np.array_equal(wf["Xi"], leg["Xi"])
+            and same_report(wf["report"], rep)):
+        raise AssertionError("aero waterfall is not bit-identical to "
+                             f"legacy: {np.abs(wf['Xi'] - leg['Xi']).max()}")
+    st = wf["stats"]
+    if wf["launches"]["gj_solve"] != st["blocks"] * st["block_iters"] \
+            + LADDER_SOLVES:
+        raise AssertionError(f"aero waterfall launches {wf['launches']}")
+    for f in ("converged", "iters", "nonfinite", "recovery_tier"):
+        if not np.array_equal(getattr(fu["report"], f), getattr(rep, f)):
+            raise AssertionError(f"aero fused {f} differs from legacy")
+    np.testing.assert_allclose(fu["Xi"], leg["Xi"], rtol=1e-8, atol=1e-12)
+    if fu["launches"] != dict(gj_solve=LADDER_SOLVES,
+                              fused_block=fu["stats"]["blocks"]):
+        raise AssertionError(f"aero fused launches {fu['launches']}")
+    cpu = rt.Model(aero_design(rt), device="cpu")
+    cpu.analyze_unloaded()
+    cpu.analyze_cases()
+    xi_rel = np.abs(leg["Xi"] - cpu.Xi).max() / np.abs(cpu.Xi).max()
+    mc = cpu.results["case_metrics"]
+    ch_rel = {}
+    for ch in ROTOR_CHANNELS:
+        scale = np.abs(mc[ch]).max()
+        if not scale > 0:
+            raise AssertionError(f"rotor channel {ch} is zero")
+        ch_rel[ch] = np.abs(leg["metrics"][ch] - mc[ch]).max() / scale
+    worst = max(ch_rel, key=ch_rel.get)
+    if not (xi_rel <= 1e-8 and ch_rel[worst] <= 1e-8):
+        raise AssertionError(f"aero card vs CPU: Xi rel {xi_rel}, {worst} "
+                             f"rel {ch_rel[worst]}")
+    xi_fu = np.abs(fu["Xi"] - leg["Xi"]).max() / np.abs(leg["Xi"]).max()
+    print(f"phase aero main path: nw={model.nw} cases={leg['Xi'].shape[0]} "
+          f"wind_cases={n_wind} trips={trips} legacy: gj_launches="
+          f"{leg['launches']['gj_solve']} {split(leg['times'])} | "
+          f"waterfall: bit_identical_to_legacy=True blocks={st['blocks']} "
+          f"gj_launches={wf['launches']['gj_solve']} {split(wf['times'])} | "
+          f"fused: flags_identical=True xi_rel_vs_legacy={xi_fu:.3e} "
+          f"fused_launches={fu['launches']['fused_block']} gj_launches="
+          f"{fu['launches']['gj_solve']} {split(fu['times'])} | "
+          f"xi_rel_vs_cpu={xi_rel:.3e} worst_rotor_channel={worst} "
+          f"rel={ch_rel[worst]:.3e} power_avg_MW="
+          f"{np.round(leg['metrics']['power_avg'] / 1e6, 3).tolist()}",
+          flush=True)
+    return {m: out[m]["launches"] for m in out}
 
 
 # ------------------------------------------------------ BEM kernels
@@ -866,6 +984,7 @@ def main():
     l_wf, l_fu = engine_phases(rt, Timers, legacy)
     megabatch_phase(rt, legacy, args)
     mixed_precision_phase(rt, Timers, legacy)
+    l_aero = aero_phase(rt, Timers)
 
     ti32 = tile_inv_phase(bg, torch.float32, 1e-5)
     tile_inv_phase(bg, torch.float64, 1e-12)
@@ -880,11 +999,13 @@ def main():
              replaces="raft_tpu/pallas_kernels.py:150",
              launches=l_leg["gj_solve"],
              launches_waterfall=l_wf["gj_solve"],
-             launches_fused=l_fu["gj_solve"], **g64),
+             launches_fused=l_fu["gj_solve"],
+             launches_aero=l_aero["legacy"]["gj_solve"], **g64),
         dict(name="fused_block", route="cuda",
              source="raft_tpu_torch/csrc/fused_block.cu",
              replaces="raft_tpu/pallas_kernels.py:428",
-             launches=l_fu["fused_block"], **f64),
+             launches=l_fu["fused_block"],
+             launches_aero=l_aero["fused"]["fused_block"], **f64),
         dict(name="tile_inv", route="cuda",
              source="raft_tpu_torch/csrc/tile_inv.cu",
              replaces="raft_tpu/pallas_kernels.py:208",

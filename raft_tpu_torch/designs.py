@@ -10,10 +10,11 @@ without any external design files.
 OC3-Hywind configuration but with round-number parameters of our own
 choosing); `demo_semi()` is a small three-column semisubmersible exercising
 heading replication, rectangular pontoons, and multi-section ballast;
-`flagship()` is the benchmark's main-path problem built on `demo_semi()`.
+`flagship()` is the benchmark's main-path problem built on `demo_semi()`;
+`demo_rotor_turbine()` is a synthetic rotor configuration and
+`demo_semi_aero()` attaches it to `demo_semi()` with operating wind.
 
-The port's own copy of ``raft_tpu/designs.py`` (the aero designs come with
-the rotor slice).
+The port's own copy of ``raft_tpu/designs.py``.
 """
 
 import numpy as np
@@ -108,6 +109,111 @@ def deep_spar(n_cases=1, nw_settings=(0.02, 0.8)):
             ],
         },
     }
+
+
+def demo_rotor_turbine(n_span=10, aeroServoMod=2):
+    """A self-contained synthetic rotor configuration (blade geometry,
+    smooth analytic airfoil polars, operating schedule, and ROSCO-style
+    control gains) with every key :class:`raft_tpu_torch.aero.Rotor`
+    consumes — so rotor/aero-servo paths run in tests and benchmarks without
+    the read-only reference mount.  The numbers are round inventions in the
+    15-MW class, NOT the IEA-15MW: physics realism is not the point;
+    exercising the BEM solve, its derivatives, and the control branch is.
+
+    Returns a ready-to-use Rotor config dict (rho_air/mu_air/shearExp
+    included); merge into a design's ``turbine`` dict to enable aero in a
+    full Model (see :func:`demo_semi_aero`).
+    """
+    Rhub, Rtip = 2.5, 60.0
+    r = np.linspace(Rhub + 1.5, Rtip - 0.8, n_span)
+    mu = (r - Rhub) / (Rtip - Rhub)
+    chord = 5.2 - 2.8 * mu
+    twist_deg = 14.0 * (1.0 - mu) ** 1.5
+    geometry = [
+        [float(ri), float(ci), float(ti), 0.0, 0.0]
+        for ri, ci, ti in zip(r, chord, twist_deg)
+    ]
+
+    # smooth analytic polars over the full +-180 deg range: thin-airfoil
+    # behavior near zero AoA blending into a flat-plate-like deep stall —
+    # single-root-friendly for the Ning residual at every station
+    aoa = np.linspace(-180.0, 180.0, 73)
+    a_rad = np.deg2rad(aoa)
+
+    def polar(cl_scale, cd0):
+        cl = cl_scale * np.sin(2.0 * a_rad) / 2.0 + 0.9 * np.sin(a_rad) \
+            * np.cos(a_rad) ** 2
+        cd = cd0 + 1.3 * np.sin(a_rad) ** 2
+        cm = -0.08 * np.sin(a_rad)
+        # +-180 deg consistency (build_airfoils enforces it anyway)
+        cl[0] = cl[-1]
+        cd[0] = cd[-1]
+        cm[0] = cm[-1]
+        return np.stack([aoa, cl, cd, cm], axis=1).tolist()
+
+    airfoils = [
+        {"name": "root_thick", "relative_thickness": 0.45,
+         "data": polar(1.2, 0.030)},
+        {"name": "tip_thin", "relative_thickness": 0.21,
+         "data": polar(2.0, 0.012)},
+    ]
+
+    v = np.arange(3.0, 26.0, 1.0)
+    rated = 10.5
+    omega = np.where(v < rated, 7.5 * v / rated, 7.5)       # rpm
+    pitch = np.where(v < rated, 0.0, 0.9 * (v - rated))     # deg
+
+    return {
+        "mRNA": 9.5e5, "IxRNA": 3.0e8, "IrRNA": 1.6e8, "xCG_RNA": -5.0,
+        "hHub": 140.0, "Zhub": 140.0,
+        "aeroServoMod": int(aeroServoMod),
+        "nBlades": 3, "Rhub": Rhub,
+        "precone": 3.0, "shaft_tilt": 5.0, "overhang": -11.0,
+        "I_drivetrain": 2.8e8, "gear_ratio": 1.0,
+        "blade": {
+            "Rtip": Rtip,
+            "geometry": geometry,
+            "airfoils": [[0.0, "root_thick"], [0.35, "tip_thin"],
+                         [1.0, "tip_thin"]],
+        },
+        "airfoils": airfoils,
+        "wt_ops": {
+            "v": v.tolist(),
+            "omega_op": omega.tolist(),
+            "pitch_op": pitch.tolist(),
+        },
+        "pitch_control": {
+            "GS_Angles": np.deg2rad(np.linspace(1.0, 24.0, 8)).tolist(),
+            "GS_Kp": np.linspace(-1.2, -0.3, 8).tolist(),
+            "GS_Ki": np.linspace(-0.14, -0.04, 8).tolist(),
+            "Fl_Kp": -9.0,
+        },
+        "torque_control": {"VS_KP": -3.8e7, "VS_KI": -4.6e6},
+        "rho_air": 1.225, "mu_air": 1.81e-5, "shearExp": 0.12,
+    }
+
+
+def demo_semi_aero(n_cases=4, n_wind=2, nw_settings=(0.02, 0.6),
+                   aeroServoMod=2):
+    """:func:`demo_semi` with the synthetic rotor attached and the last
+    ``n_wind`` cases given operating wind — the smallest design that runs
+    the full aero-servo sweep path (zero-pitch first pass, guided
+    mean-pitch second pass, hub a(w)/b(w) terms) without the reference
+    mount."""
+    d = demo_semi(n_cases=n_cases, nw_settings=nw_settings)
+    turb = demo_rotor_turbine(aeroServoMod=aeroServoMod)
+    hub = d["turbine"]["hHub"]
+    turb["hHub"] = hub
+    turb["Zhub"] = hub
+    tower = d["turbine"]["tower"]
+    d["turbine"] = dict(turb)
+    d["turbine"]["tower"] = tower
+    keys = d["cases"]["keys"]
+    rows = [dict(zip(keys, row)) for row in d["cases"]["data"]]
+    for j in range(max(0, n_cases - n_wind), n_cases):
+        rows[j]["wind_speed"] = 8.0 + 2.0 * (j - (n_cases - n_wind))
+    d["cases"]["data"] = [[row[k] for k in keys] for row in rows]
+    return d
 
 
 def demo_semi(n_cases=2, nw_settings=(0.02, 0.8)):

@@ -12,8 +12,10 @@ package's mode variables become explicit arguments:
 ``Model(..., mixed_precision=...)``.
 
 Work split:
- - host, float64 on the CPU: geometry packing, statics, the per-case
-   mooring equilibrium and linearization, the response metrics;
+ - host, float64 on the CPU: geometry packing, statics, the rotor (mean
+   loads, derivatives and aero-servo terms of every wind case, one
+   batched evaluation per pass), the per-case mooring equilibrium and
+   linearization, the response metrics;
  - the working device (``cuda`` by default): the batched case dynamics —
    wave kinematics at every strip node, Froude–Krylov excitation, the
    drag-linearization fixed point and its 12x12 Gauss–Jordan solves, all
@@ -26,6 +28,7 @@ import os
 import numpy as np
 import torch
 
+from raft_tpu_torch.aero import Rotor, _RPM2RADPS, hub_mean_loads
 from raft_tpu_torch.bem import (
     interp_to_grid,
     read_capytaine_nc,
@@ -53,11 +56,16 @@ from raft_tpu_torch.mooring import (
     BRIDLES_NOT_PORTED,
 )
 from raft_tpu_torch.statics import compute_statics, member_inertia
-from raft_tpu_torch.utils.frames import translate_matrix_6to6
+from raft_tpu_torch.utils.frames import (
+    transform_force,
+    translate_matrix_3to6,
+    translate_matrix_6to6,
+)
 from raft_tpu_torch.utils.placement import (
     HOST,
     HOST_DTYPE,
     complex_dtype,
+    host_threads,
     resolve_device,
     resolve_dtype,
 )
@@ -223,8 +231,13 @@ class Model:
         self.IrRNA = float(turb["IrRNA"])
         self.hHub = float(turb["hHub"])
         self.aeroServoMod = get_from_dict(turb, "aeroServoMod", default=1)
+        self.rotor = None
         if self.aeroServoMod > 0:
-            raise _not_ported("the rotor (aeroServoMod > 0)", 6)
+            rot_cfg = dict(turb)
+            rot_cfg["rho_air"] = site["rho_air"]
+            rot_cfg["mu_air"] = site["mu_air"]
+            rot_cfg["shearExp"] = site["shearExp"]
+            self.rotor = Rotor(rot_cfg, self.w)
 
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(precision)
@@ -402,6 +415,7 @@ class Model:
         height = np.zeros(ncase)
         period = np.ones(ncase)
         beta = np.zeros(ncase)
+        wind = np.zeros(ncase)
         for i, c in enumerate(cases):
             s = str(c.get("wave_spectrum", "unit"))
             if s not in _SPECTRUM_CODES:
@@ -411,7 +425,38 @@ class Model:
             period[i] = float(c.get("wave_period", 1.0))
             # wave heading is given in degrees in the design schema
             beta[i] = np.deg2rad(float(c.get("wave_heading", 0.0)))
-        return spec, height, period, beta
+            wind[i] = float(c.get("wind_speed", 0.0))
+        return spec, height, period, beta, wind
+
+    def _rotor_lanes(self, cases, wind, ptfm_pitch, derivs):
+        """One batched rotor evaluation of every wind case at platform
+        pitch ``ptfm_pitch`` [ncase]: (the cases' indices, vals, J), as
+        :meth:`Rotor.run_bem_batch` returns them."""
+        idx = [] if self.rotor is None else [
+            i for i in range(len(cases)) if wind[i] > 0.0]
+        if not idx:
+            return idx, None, None
+        vals, J = self.rotor.run_bem_batch(
+            wind[idx], np.broadcast_to(ptfm_pitch, wind.shape)[idx],
+            [cases[i].get("yaw_misalign", 0.0) for i in idx], derivs=derivs)
+        return idx, vals, J
+
+    def _at_prp(self, F_hub):
+        """A hub force/moment vector moved to the PRP."""
+        return transform_force(_host(F_hub),
+                               offset=_host([0.0, 0.0, self.hHub])).numpy()
+
+    def aero_case_means(self, cases, wind, ptfm_pitch=0.0):
+        """Per-case mean rotor loads at the PRP at a given platform pitch
+        (the reference's first calcTurbineConstants pass,
+        raft/raft_model.py:504-513); zero rows for wind-free cases or aero
+        off.  Only the loads are needed, so the rotor skips its
+        derivatives and the aero-servo terms here."""
+        F = np.zeros((len(cases), 6))
+        idx, vals, _ = self._rotor_lanes(cases, wind, ptfm_pitch, False)
+        for k, i in enumerate(idx):
+            F[i] = self._at_prp(hub_mean_loads(vals[k]))
+        return F
 
     def case_pipeline_fn(self, checkable=False, wrap=None):
         """The batched device function of the case dynamics:
@@ -437,8 +482,13 @@ class Model:
         Returns (args, aux): ``args`` is the input tuple of
         :meth:`case_pipeline_fn` as NumPy arrays in the working dtype (see
         :func:`raft_tpu_torch.convert.case_args_from_numpy`); ``aux``
-        carries the per-case quantities the output stage needs.
+        carries the per-case quantities the output stage needs.  The host
+        work runs on one CPU thread (:func:`host_threads`).
         """
+        with host_threads():
+            return self._prepare_case_inputs(cases, verbose)
+
+    def _prepare_case_inputs(self, cases, verbose):
         if cases is None:
             cases = cases_as_dicts(self.design)
         ncase = len(cases)
@@ -448,13 +498,14 @@ class Model:
             self.analyze_unloaded()
         st = self.statics
 
-        spec, height, period, beta = self._case_arrays(cases)
+        spec, height, period, beta, wind = self._case_arrays(cases)
         zeta = make_wave_spectrum(
             _host(self.w)[None, :], torch.as_tensor(spec)[:, None],
             _host(height)[:, None], _host(period)[:, None]).numpy()
 
-        # aero is off in this slice, so the mean loads are zero
-        F_aero0 = np.zeros((ncase, 6))
+        # ---- per-case aero means at zero platform pitch (reference
+        # solveStatics first pass, raft_model.py:504-513) ----
+        F_aero0 = self.aero_case_means(cases, wind)
         with timer("mooring_offsets"):
             Xi0, C_moor, _, T_moor, J_moor, _ = self._mooring_and_offsets(
                 F_aero0)
@@ -465,13 +516,43 @@ class Model:
                     f"pitch={Xi0[i,4]*_RAD2DEG:.2f} deg"
                 )
 
-        dt = _np_dtype(self.dtype)
+        # ---- re-run the rotor at the mean platform pitch (reference
+        # solveStatics second pass, raft_model.py:516-517) and build the
+        # frequency-dependent hub added mass / damping matrices ----
         M_hub = np.zeros((ncase, self.nw, 6, 6))
+        B_hub = np.zeros((ncase, self.nw, 6, 6))
+        self._rotor_case = [None] * ncase
+        rHub = _host([0.0, 0.0, self.hHub])
+        rot = self.rotor
+        idx, vals, J = self._rotor_lanes(cases, wind, Xi0[:, 4], True)
+        for k, i in enumerate(idx):
+            F0_hub, _, a_a, b_a = rot.aero_servo_terms(cases[i], vals[k],
+                                                       J[k])
+            F_aero0[i] = self._at_prp(F0_hub)
+            diag = np.zeros((2, self.nw, 3, 3))
+            diag[0, :, 0, 0] = a_a
+            diag[1, :, 0, 0] = b_a
+            M_hub[i], B_hub[i] = translate_matrix_3to6(_host(diag),
+                                                       rHub).numpy()
+            self._rotor_case[i] = dict(
+                C=np.array(rot.C), V_w=np.array(rot.V_w),
+                kp_beta=getattr(rot, "kp_beta", 0.0),
+                ki_beta=getattr(rot, "ki_beta", 0.0),
+                Omega_case=rot.Omega_case, pitch_case=rot.pitch_case,
+                aero_torque=rot.aero_torque, aero_power=rot.aero_power,
+                A00=M_hub[i, :, 0, 0].copy(), B00=B_hub[i, :, 0, 0].copy(),
+                F_aero0=F_aero0[i].copy(),
+            )
+        # the turbulent wind excitation is computed but, like the reference
+        # (raft_model.py:547-549), not applied in the wave-response solve;
+        # it feeds only the rotor output spectra
+
+        dt = _np_dtype(self.dtype)
         M_lin = (
             st.M_struc[None, None, :, :] + self._A_morison[None, None, :, :]
             + M_hub
         ).astype(dt)
-        B_lin = np.zeros((ncase, self.nw, 6, 6), dt)
+        B_lin = B_hub.astype(dt)
         C_lin = (
             st.C_struc[None, :, :] + st.C_hydro[None, :, :] + C_moor
         ).astype(dt)
@@ -627,7 +708,7 @@ class Model:
     def _save_case_outputs(self, m, iCase, Xi0, Xi, zeta, case):
         """Platform/turbine response statistics for one case
         (reference raft/raft_fowt.py:706-833; the rotor channels stay zero
-        with aero off)."""
+        with aero off or no wind)."""
         st = self.statics
         dw = self.dw
         w = self.w
@@ -674,18 +755,53 @@ class Model:
                 + self.IrRNA
             )
         ICG_turbine = self._ICG_turbine
+        rc = self._rotor_case[iCase]
         M_I = -m_turbine * aCG * hArm - ICG_turbine * (-(w**2) * Xi[4])
         M_w = m_turbine * self.g * hArm * Xi[4]
-        # M_F_aero is zeroed like the reference (raft_fowt.py:760)
-        dynamic_moment = M_I + M_w
-        # the aero mean-load moment term is zero with aero off
-        m["Mbase_avg"][iCase] = m_turbine * self.g * hArm * np.sin(Xi0[4])
+        # M_F_aero is zeroed like the reference (raft_fowt.py:760); the aero
+        # reaction moment uses the hub fore-aft a(w)/b(w)
+        M_X_aero = 0.0
+        F_aero0_case = np.zeros(6)
+        if rc is not None:
+            M_X_aero = (
+                -(-(w**2) * rc["A00"] + 1j * w * rc["B00"])
+                * (self.hHub - zBase) ** 2 * Xi[4]
+            )
+            F_aero0_case = rc["F_aero0"]
+        dynamic_moment = M_I + M_w + M_X_aero
+        m["Mbase_avg"][iCase] = (
+            m_turbine * self.g * hArm * np.sin(Xi0[4])
+            + transform_force(_host(F_aero0_case),
+                              offset=_host([0.0, 0.0, -hArm]))[4].item())
         m["Mbase_std"][iCase] = rms(dynamic_moment)
         m["Mbase_max"][iCase] = m["Mbase_avg"][iCase] \
             + 3 * m["Mbase_std"][iCase]
         m["Mbase_PSD"][iCase] = np.abs(dynamic_moment) ** 2
 
         m["wave_PSD"][iCase] = np.abs(zeta) ** 2
+
+        # rotor/control output spectra (reference raft_fowt.py:797-833)
+        if rc is None or self.aeroServoMod <= 1 \
+                or not case.get("wind_speed", 0) > 0:
+            return
+        radps2rpm = 1.0 / _RPM2RADPS
+        phi_w = rc["C"] * (XiHub - rc["V_w"] / (1j * w))
+        omega_w = 1j * w * phi_w
+        m["omega_avg"][iCase] = rc["Omega_case"]
+        m["omega_std"][iCase] = radps2rpm * rms(omega_w)
+        m["omega_max"][iCase] = m["omega_avg"][iCase] \
+            + 2 * m["omega_std"][iCase]
+        m["omega_PSD"][iCase] = radps2rpm**2 * np.abs(omega_w) ** 2
+        torque_w = (1j * w * self.rotor.kp_tau + self.rotor.ki_tau) * phi_w
+        m["torque_avg"][iCase] = rc["aero_torque"] / self.rotor.Ng
+        m["torque_std"][iCase] = rms(torque_w)
+        m["torque_PSD"][iCase] = np.abs(torque_w) ** 2
+        m["power_avg"][iCase] = rc["aero_power"]
+        bPitch_w = (1j * w * rc["kp_beta"] + rc["ki_beta"]) * phi_w
+        m["bPitch_avg"][iCase] = rc["pitch_case"]
+        m["bPitch_std"][iCase] = _RAD2DEG * rms(bPitch_w)
+        m["bPitch_PSD"][iCase] = _RAD2DEG**2 * np.abs(bPitch_w) ** 2
+        m["wind_PSD"][iCase] = np.abs(rc["V_w"]) ** 2
 
     def _print_case_stats(self, i, nLines):
         m = self.results["case_metrics"]

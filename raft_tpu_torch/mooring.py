@@ -10,12 +10,14 @@ and the linearized outputs the dynamics consumes: the coupled stiffness
 
 Every function batches over the leading axes of its pose or geometry
 operands (cases x lines).  The catenary Newton runs to convergence per
-lane; its derivative is implicit, like ``lax.custom_root`` in the JAX
-package: :class:`_CatenaryRoot` is a ``torch.autograd.Function`` whose
-``jvp`` and ``backward`` are one 2x2 implicit-function solve at the
-converged point.  The Jacobians (equilibrium Newton, ``C_moor``,
-``J_moor``) are taken with ``torch.func`` forward mode through it, never
-by unrolling the Newton.
+lane, with the profile's 2x2 Jacobian written out, and its derivative is
+implicit, like ``lax.custom_root`` in the JAX package: one 2x2 solve at
+the converged point, never an unrolled Newton.  The Jacobians in the
+pose (equilibrium Newton, ``C_moor``, ``J_moor``) are tangents carried
+explicitly by the chain rule, fairlead geometry -> (XF, ZF) -> (HF, VF)
+-> forces and tensions, with no functorch transform.  Reverse mode goes
+through :class:`_CatenaryRoot`, a ``torch.autograd.Function`` whose
+``backward`` is the same implicit solve.
 
 A design with bridle junctions parses, but solving it raises
 ``NotImplementedError`` (ROADMAP.md, queue 1 step 5).
@@ -25,25 +27,16 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.func import jvp, vmap
 
-from raft_tpu_torch.utils.frames import rotation_matrix, translate_force_3to6
+from raft_tpu_torch.utils.frames import (
+    cross,
+    rotation_matrix,
+    rotation_matrix_derivatives,
+    translate_force_3to6,
+)
 
 BRIDLES_NOT_PORTED = (
     "bridle junctions are not ported yet (ROADMAP.md, queue 1 step 5)")
-
-
-def value_and_jacfwd(f, x):
-    """``(f(x), df/dx)`` for a function that acts independently on every
-    leading index of ``x [..., n]``: one forward-mode pass per input
-    component, each seeding that component in every batch lane at once.
-    Returns ``f(x) [..., k]`` and the per-lane Jacobian ``[..., k, n]``."""
-    n = x.shape[-1]
-    basis = torch.eye(n, dtype=x.dtype, device=x.device)
-    basis = basis.reshape((n,) + (1,) * (x.dim() - 1) + (n,)).expand(
-        (n,) + x.shape)
-    y, jac = vmap(lambda t: jvp(f, (x,), (t,)), out_dims=(None, 0))(basis)
-    return y, jac.movedim(0, -1)
 
 
 # ---------------- host-side parsing ----------------
@@ -343,10 +336,56 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def _profile(H, V, L, EA, w, cb):
-    """Fairlead excursion (x, z) of one segment under fairlead tension
-    components (H horizontal, V vertical), with seabed contact and
-    MoorPy-style seabed friction ``cb`` (0 = frictionless).
+def _step(a, b):
+    """d max(a, b) / da as JAX takes it: 1 where a > b, 0 where a < b, and
+    one half at a tie (``jnp.maximum`` splits the derivative evenly)."""
+    return (a > b).to(a.dtype) + 0.5 * (a == b).to(a.dtype)
+
+
+def _clip_grad(x, lo, hi):
+    """d clip(x, lo, hi) / dx with the tie rule of :func:`_step`."""
+    return _step(x, lo) * _step(hi, torch.maximum(x, lo))
+
+
+class _Segments:
+    """The profile's constants of segments ``[..., k]`` (computed once per
+    catenary solve, not per Newton step); ``cb`` marks the bottom
+    segment, which may touch the seabed, with its friction."""
+
+    def __init__(self, L, EA, w, cb=None):
+        self.L, self.EA, self.w = L, EA, w
+        self.wL = w * L
+        self.half_wL2 = 0.5 * w * L**2
+        self.zero = torch.zeros_like(L)
+        self.friction = cb is not None and bool((cb > 0.0).any())
+        if self.friction:
+            self.on = cb > 0.0
+            cb_s = torch.clamp(cb, min=1e-12)
+            self.cbw = cb_s * w
+            self.cbw_2EA = self.cbw / (2.0 * EA)
+            self.cbw_EA = self.cbw / EA
+
+
+def _suspended(H, V, g):
+    """Spans of suspended segments ``g`` under (H, V), and the partials
+    (x_H, x_V, z_H, z_V); inert padding (L=0) spans 0."""
+    vh = V / H
+    vah = (V - g.wL) / H
+    s1 = torch.sqrt(1 + vh**2)
+    s2 = torch.sqrt(1 + vah**2)
+    a1, a2 = torch.asinh(vh), torch.asinh(vah)
+    x = H / g.w * (a1 - a2) + H * g.L / g.EA
+    z = H / g.w * (s1 - s2) + (V * g.L - g.half_wL2) / g.EA
+    x_V = (1 / s1 - 1 / s2) / g.w
+    return x, z, ((a1 - a2 - vh / s1 + vah / s2) / g.w + g.L / g.EA, x_V,
+                  x_V, (vh / s1 - vah / s2) / g.w + g.L / g.EA), (vh, s1, a1)
+
+
+def _profile(H, V, g):
+    """Fairlead excursion (x, z) of the bottom segment ``g`` under fairlead
+    tension components (H horizontal, V vertical), with seabed contact and
+    MoorPy-style seabed friction ``cb`` (0 = frictionless), and its
+    partials (x_H, x_V, z_H, z_V).
 
     Suspended (V >= wL):
       x = H/w [asinh(V/H) - asinh((V-wL)/H)] + HL/EA
@@ -356,76 +395,76 @@ def _profile(H, V, L, EA, w, cb):
           + cb w/(2 EA) (lam max(lam, 0) - LB^2),  lam = LB - H/(cb w)
       z = H/w (sqrt(1+(V/H)^2) - 1) + V^2/(2 EA w)
     """
-    W = w * L
-    VA = V - W
-    vh = V / H
-    vah = VA / H
-    xs = H / w * (torch.asinh(vh) - torch.asinh(vah)) + H * L / EA
-    zs = (
-        H / w * (torch.sqrt(1 + vh**2) - torch.sqrt(1 + vah**2))
-        + (V * L - 0.5 * w * L**2) / EA
-    )
-    LB = _clip(L - V / w, torch.zeros_like(L), L)
-    cb_s = torch.clamp(cb, min=1e-12)
-    lam = LB - H / (cb_s * w)
-    fric = torch.where(
-        cb > 0.0,
-        cb_s * w / (2.0 * EA) * (lam * torch.clamp(lam, min=0.0) - LB**2),
-        torch.zeros_like(lam),
-    )
-    xt = LB + H / w * torch.asinh(vh) + H * L / EA + fric
-    zt = H / w * (torch.sqrt(1 + vh**2) - 1.0) + V**2 / (2 * EA * w)
-    suspended = VA >= 0
-    return torch.where(suspended, xs, xt), torch.where(suspended, zs, zt)
+    L, EA, w = g.L, g.EA, g.w
+    xs, zs, ds, (vh, s1, a1) = _suspended(H, V, g)
+    u = L - V / w
+    LB = _clip(u, g.zero, L)
+    xt = LB + H / w * a1 + H * L / EA
+    zt = H / w * (s1 - 1.0) + V**2 / (2 * EA * w)
+    dLB_dV = -_clip_grad(u, g.zero, L) / w
+    xt_H = (a1 - vh / s1) / w + L / EA
+    xt_V = dLB_dV + 1 / (s1 * w)
+    if g.friction:
+        lam = LB - H / g.cbw
+        lam_p = torch.clamp(lam, min=0.0)
+        zero = torch.zeros_like(lam)
+        xt = xt + torch.where(g.on, g.cbw_2EA * (lam * lam_p - LB**2), zero)
+        # d(lam max(lam, 0))/dlam = 2 max(lam, 0), ties included
+        xt_H = xt_H + torch.where(g.on, -lam_p / EA, zero)
+        xt_V = xt_V + torch.where(g.on, g.cbw_EA * (lam_p - LB) * dLB_dV,
+                                  zero)
+    zt_H = (1 / s1 - 1.0) / w
+    zt_V = vh / (s1 * w) + V / (EA * w)
+    sus = V - g.wL >= 0
+    return (torch.where(sus, xs, xt), torch.where(sus, zs, zt),
+            tuple(torch.where(sus, a, b)
+                  for a, b in zip(ds, (xt_H, xt_V, zt_H, zt_V))))
 
 
-def _profile_suspended(H, V, L, EA, w):
-    """Suspended-segment spans (no seabed contact), over a trailing
-    segment axis; inert padding (L=0) spans 0."""
-    vh = V / H
-    vah = (V - w * L) / H
-    x = H / w * (torch.asinh(vh) - torch.asinh(vah)) + H * L / EA
-    z = (
-        H / w * (torch.sqrt(1 + vh**2) - torch.sqrt(1 + vah**2))
-        + (V * L - 0.5 * w * L**2) / EA
-    )
-    return x, z
+class _Lines:
+    """Composite lines [..., S] (segments anchor -> fairlead, clump
+    weights ``Wp`` at segment tops) prepared for the profile equations:
+    the bottom segment may touch down, with friction ``cb``; the upper
+    segments hang suspended."""
+
+    def __init__(self, L, EA, w, Wp, cb):
+        c = w * L
+        # vertical tension at each segment's top: V minus what hangs above
+        self.above_seg = c.sum(-1, keepdim=True) - torch.cumsum(c, -1)
+        self.above_pt = Wp.sum(-1, keepdim=True) - torch.cumsum(Wp, -1) + Wp
+        self.bottom = _Segments(L[..., 0], EA[..., 0], w[..., 0], cb)
+        self.upper = None if L.shape[-1] == 1 else _Segments(
+            L[..., 1:], EA[..., 1:], w[..., 1:])
 
 
-def _segment_top_tensions(V, L, w, Wp):
-    """Vertical tension at the top of each segment [..., S] of a composite
-    line (segments ordered anchor -> fairlead; fairlead vertical tension
-    V [...]; Wp = clump weight at each segment's top node)."""
-    c = w * L
-    above_seg = c.sum(-1, keepdim=True) - torch.cumsum(c, -1)
-    above_pt = Wp.sum(-1, keepdim=True) - torch.cumsum(Wp, -1) + Wp
-    return V[..., None] - above_seg - above_pt
+def _catenary_resid_jac(p, XF, ZF, lines):
+    """Profile residual of composite ``lines`` at log-tensions
+    ``p = (log H, log V)`` [..., 2], and its Jacobian in p [..., 2, 2]."""
+    H, V = torch.exp(p[..., 0]), torch.exp(p[..., 1])
+    Vtop = V[..., None] - lines.above_seg - lines.above_pt
+    x, z, d = _profile(H, Vtop[..., 0], lines.bottom)
+    if lines.upper is not None:
+        xu, zu, du, _ = _suspended(H[..., None], Vtop[..., 1:], lines.upper)
+        x, z = x + xu.sum(-1), z + zu.sum(-1)
+        d = tuple(a + b.sum(-1) for a, b in zip(d, du))
+    x_H, x_V, z_H, z_V = d
+    r = torch.stack([x - XF, z - ZF], dim=-1)
+    J = torch.stack([x_H * H, x_V * V, z_H * H, z_V * V],
+                    dim=-1).unflatten(-1, (2, 2))
+    return r, J
 
 
-def _profile_composite(H, V, L, EA, w, Wp, cb):
-    """Fairlead excursion (x, z) of composite lines [..., S] under
-    fairlead tension (H, V) [...]: the bottom segment may touch down
-    (with friction ``cb``), the upper segments hang suspended."""
-    Vtop = _segment_top_tensions(V, L, w, Wp)
-    x0, z0 = _profile(H, Vtop[..., 0], L[..., 0], EA[..., 0], w[..., 0], cb)
-    xu, zu = _profile_suspended(H[..., None], Vtop[..., 1:], L[..., 1:],
-                                EA[..., 1:], w[..., 1:])
-    return x0 + xu.sum(-1), z0 + zu.sum(-1)
-
-
-def _catenary_resid(p, XF, ZF, L, EA, w, Wp, cb):
-    """Profile residual at log-tensions ``p = (log H, log V)`` [..., 2]."""
-    x, z = _profile_composite(torch.exp(p[..., 0]), torch.exp(p[..., 1]),
-                              L, EA, w, Wp, cb)
-    return torch.stack([x - XF, z - ZF], dim=-1)
+def _det2(J):
+    """Determinant of [..., 2, 2] with the JAX package's guard on a
+    vanishing value."""
+    det = J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]
+    return torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30),
+                       det)
 
 
 def _solve2(J, y):
-    """Per-lane 2x2 solve J x = y by the adjugate, with the JAX package's
-    guard on a vanishing determinant."""
-    det = J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]
-    det = torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30),
-                      det)
+    """Per-lane 2x2 solve J x = y by the adjugate."""
+    det = _det2(J)
     return torch.stack([
         (J[..., 1, 1] * y[..., 0] - J[..., 0, 1] * y[..., 1]) / det,
         (-J[..., 1, 0] * y[..., 0] + J[..., 0, 0] * y[..., 1]) / det,
@@ -454,80 +493,69 @@ def _catenary_guess(XF, ZF, L, EA, w, Wp):
                        dim=-1)
 
 
+def _catenary_newton(XF, ZF, L, EA, w, Wp, cb, iters, tol):
+    """Damped Newton in (log H, log V) from the MoorPy-style guess, per
+    lane until the relative residual is below ``tol`` (cap ``iters``),
+    with the profile's Jacobian written out; a converged lane keeps its
+    state while the others go on, as under the JAX ``while_loop`` +
+    ``vmap``."""
+    scale = torch.maximum(torch.abs(XF), torch.abs(ZF))
+    tol = tol + 30 * torch.finfo(XF.dtype).eps
+    lines = _Lines(L, EA, w, Wp, cb)
+    p = _catenary_guess(XF, ZF, L, EA, w, Wp)
+    err = torch.full_like(XF, torch.inf)
+    for _ in range(iters):
+        active = err > tol
+        if not bool(active.any()):
+            break
+        r, J = _catenary_resid_jac(p, XF, ZF, lines)
+        step = torch.clamp(_solve2(J, r), -1.5, 1.5)
+        p = torch.where(active[..., None], p - step, p)
+        err = torch.where(active, torch.abs(r).amax(-1) / scale, err)
+    return p
+
+
 class _CatenaryRoot(torch.autograd.Function):
     """Log fairlead tensions ``p [..., 2]`` solving the profile equations
-    of composite lines spanning (XF, ZF).
+    of composite lines spanning (XF, ZF), by :func:`_catenary_newton`.
 
-    Forward: damped Newton in (log H, log V) from the MoorPy-style guess,
-    per lane until the relative residual is below ``tol`` (cap
-    ``iters``); a converged lane keeps its state while the others go on,
-    as under the JAX ``while_loop`` + ``vmap``.  Derivatives with respect
-    to XF and ZF are implicit: the residual is ``(x(p) - XF, z(p) - ZF)``,
-    so ``dp = J_p^{-1} (dXF, dZF)`` at the converged point.  The line
-    properties are constants (no derivative flows to them).
+    The reverse-mode derivative with respect to XF and ZF is implicit:
+    the residual is ``(x(p) - XF, z(p) - ZF)``, so ``dp = J_p^{-1} (dXF,
+    dZF)`` at the converged point, and the gradient is one transposed
+    2x2 solve there.  The line properties are constants (no derivative
+    flows to them).
     """
-
-    generate_vmap_rule = True
 
     @staticmethod
     def forward(XF, ZF, L, EA, w, Wp, cb, iters, tol):
-        scale = torch.maximum(torch.abs(XF), torch.abs(ZF))
-        tol = tol + 30 * torch.finfo(XF.dtype).eps
-
-        def resid(q):
-            return _catenary_resid(q, XF, ZF, L, EA, w, Wp, cb)
-
-        p = _catenary_guess(XF, ZF, L, EA, w, Wp)
-        err = torch.full_like(XF, torch.inf)
-        for _ in range(iters):
-            active = err > tol
-            if not bool(active.any()):
-                break
-            r, J = value_and_jacfwd(resid, p)
-            step = torch.clamp(_solve2(J, r), -1.5, 1.5)
-            p = torch.where(active[..., None], p - step, p)
-            err = torch.where(active, torch.abs(r).amax(-1) / scale, err)
-        return p
+        return _catenary_newton(XF, ZF, L, EA, w, Wp, cb, iters, tol)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        XF, ZF, L, EA, w, Wp, cb = inputs[:7]
-        ctx.save_for_backward(XF, ZF, L, EA, w, Wp, cb, output)
-        ctx.save_for_forward(XF, ZF, L, EA, w, Wp, cb, output)
-
-    @staticmethod
-    def _jacobian(ctx):
-        XF, ZF, L, EA, w, Wp, cb, p = ctx.saved_tensors
-        _, J = value_and_jacfwd(
-            lambda q: _catenary_resid(q, XF, ZF, L, EA, w, Wp, cb), p)
-        return J
-
-    @staticmethod
-    def jvp(ctx, dXF, dZF, *_):
-        J = _CatenaryRoot._jacobian(ctx)
-        zero = torch.zeros_like(J[..., 0, 0])
-        dXF = zero if dXF is None else dXF
-        dZF = zero if dZF is None else dZF
-        return _solve2(J, torch.stack(torch.broadcast_tensors(dXF, dZF),
-                                      dim=-1))
+        ctx.save_for_backward(*inputs[:7], output)
 
     @staticmethod
     def backward(ctx, gp):
-        J = _CatenaryRoot._jacobian(ctx)
+        XF, ZF, L, EA, w, Wp, cb, p = ctx.saved_tensors
+        _, J = _catenary_resid_jac(p, XF, ZF, _Lines(L, EA, w, Wp, cb))
         g = _solve2(J.transpose(-1, -2), gp)
         return (g[..., 0], g[..., 1]) + (None,) * 7
 
 
-def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11):
+def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11,
+                   tangents=False):
     """Fairlead tension components (HF, VF) of (possibly composite) lines
     spanning horizontal distance XF and vertical distance ZF [...].
     ``L``/``EA``/``w``/``Wp`` are [..., S] segment arrays ordered
     anchor -> fairlead (clump weights ``Wp`` at segment tops; a scalar is
     one segment); ``cb`` is the bottom segment's seabed friction.
 
-    Differentiable in XF and ZF through the implicit-function rule of
-    :class:`_CatenaryRoot`.  Fully slack lines (more line than span plus
-    drop) take the closed-form vertical hang: H = 0, V = hanging weight.
+    Differentiable (reverse mode) in XF and ZF through the implicit rule
+    of :class:`_CatenaryRoot`.  With ``tangents=True`` it runs outside
+    autograd and also returns the partials d(HF, VF)/d(XF, ZF)
+    [..., 2, 2] (rows HF, VF; columns XF, ZF) by the same implicit rule.
+    Fully slack lines (more line than span plus drop) take the
+    closed-form vertical hang: H = 0, V = hanging weight.
     """
     L, EA, w = (torch.atleast_1d(t) for t in (L, EA, w))
     Wp = torch.zeros_like(L) if Wp is None else torch.atleast_1d(Wp)
@@ -536,14 +564,17 @@ def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11):
                                    cb.shape)
     L, EA, w, Wp = (t.expand(batch + t.shape[-1:]) for t in (L, EA, w, Wp))
     cb = cb.expand(batch)
-    XF = XF.expand(batch)
+    XF_span = XF.expand(batch)
     ZF = ZF.expand(batch)
     L_tot = L.sum(-1)
     # guard XF -> 0 (fairlead directly above the anchor): a tiny span keeps
     # the solve finite; HF then comes out ~0
-    XF = torch.maximum(XF, 1e-6 * L_tot)
+    XF = torch.maximum(XF_span, 1e-6 * L_tot)
     d = torch.sqrt(XF**2 + ZF**2)
-    p = _CatenaryRoot.apply(XF, ZF, L, EA, w, Wp, cb, iters, tol)
+    if tangents:
+        p = _catenary_newton(XF, ZF, L, EA, w, Wp, cb, iters, tol)
+    else:
+        p = _CatenaryRoot.apply(XF, ZF, L, EA, w, Wp, cb, iters, tol)
     HF, VF = torch.exp(p[..., 0]), torch.exp(p[..., 1])
     # fully-slack regime (L > XF + ZF): a vertical hang of length ZF with
     # the excess on the seabed — H = 0 and V = the hanging weight; the
@@ -557,12 +588,30 @@ def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11):
         ~torch.isfinite(HF) | ~torch.isfinite(VF))
     fully_slack = near | bad
     above = L_tot[..., None] - torch.cumsum(L, -1)
-    hang = _clip(ZF[..., None] - above, torch.zeros_like(L), L)
+    zero = torch.zeros_like(L)
+    hang = _clip(ZF[..., None] - above, zero, L)
     V_hang = (w * hang).sum(-1) + torch.where(
-        above < ZF[..., None], Wp, torch.zeros_like(Wp)).sum(-1)
-    HF = torch.where(fully_slack, torch.zeros_like(HF), HF)
-    VF = torch.where(fully_slack, V_hang, VF)
-    return HF, VF
+        above < ZF[..., None], Wp, zero).sum(-1)
+    HF_s = torch.where(fully_slack, torch.zeros_like(HF), HF)
+    VF_s = torch.where(fully_slack, V_hang, VF)
+    if not tangents:
+        return HF_s, VF_s
+    # dp/d(XF, ZF) = J_p^{-1} at the converged point, then the chain rule
+    # through exp and the XF guard
+    _, J = _catenary_resid_jac(p, XF, ZF, _Lines(L, EA, w, Wp, cb))
+    det = _det2(J)
+    Jinv = torch.stack([torch.stack([J[..., 1, 1], -J[..., 0, 1]], -1),
+                        torch.stack([-J[..., 1, 0], J[..., 0, 0]], -1)],
+                       -2) / det[..., None, None]
+    col = torch.stack([_step(XF_span, 1e-6 * L_tot), torch.ones_like(XF)],
+                      -1)[..., None, :]
+    dHV = torch.stack([HF, VF], -1)[..., None] * Jinv * col
+    dV_hang = (w * _clip_grad(ZF[..., None] - above, zero, L)).sum(-1)
+    z1 = torch.zeros_like(dV_hang)
+    d_slack = torch.stack([torch.stack([z1, z1], -1),
+                           torch.stack([z1, dV_hang], -1)], -2)
+    return HF_s, VF_s, torch.where(fully_slack[..., None, None], d_slack,
+                                   dHV)
 
 
 # ---------------- system-level forces ----------------
@@ -570,6 +619,86 @@ def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11):
 def _no_bridles(bridles):
     if bridles is not None:
         raise NotImplementedError(BRIDLES_NOT_PORTED)
+
+
+def _defaults(L, Wp, cb):
+    if Wp is None:
+        Wp = torch.zeros_like(L)
+    if cb is None:
+        cb = torch.zeros_like(L[..., 0])
+    return Wp, cb
+
+
+def _lines(r6, anchors, rFair, L, EA, w, Wp, cb, tangents):
+    """Mooring reaction f6 [..., 6] at pose r6 [..., 6] and each line's
+    fairlead tensions HF, VF [..., nL].  With ``tangents`` it also returns
+    the derivatives with respect to r6, carried by the chain rule from
+    the fairlead geometry through (XF, ZF) and the catenary's implicit
+    tangents: d f6 [..., 6, 6], dHF and dVF [..., nL, 6]."""
+    R = rotation_matrix(r6[..., 3], r6[..., 4], r6[..., 5])
+    arm = torch.einsum("...ij,lj->...li", R, rFair)   # rotated fairleads
+    p = r6[..., None, :3] + arm                        # fairlead positions
+    dxy = p[..., :2] - anchors[:, :2]
+    XF = torch.sqrt(torch.sum(dxy**2, dim=-1))
+    ZF = p[..., 2] - anchors[:, 2]
+    # vertical-line guard: the direction is irrelevant when XF ~ 0
+    m = torch.clamp(XF, min=1e-9)
+    u = dxy / m[..., None]
+    if not tangents:
+        HF, VF = catenary_solve(XF, ZF, L, EA, w, Wp, cb)
+        F3 = torch.stack([-HF * u[..., 0], -HF * u[..., 1], -VF], dim=-1)
+        return torch.sum(translate_force_3to6(F3, arm), dim=-2), HF, VF
+    HF, VF, dHV = catenary_solve(XF, ZF, L, EA, w, Wp, cb, tangents=True)
+    F3 = torch.stack([-HF * u[..., 0], -HF * u[..., 1], -VF], dim=-1)
+    f6 = torch.sum(translate_force_3to6(F3, arm), dim=-2)
+    # tangents [..., nL, 6 (pose component), 3 (vector)]
+    dR = rotation_matrix_derivatives(r6[..., 3], r6[..., 4], r6[..., 5])
+    darm = torch.einsum("...ijk,lj->...lki", dR, rFair)
+    darm = torch.cat([torch.zeros_like(darm), darm], dim=-2)
+    dp = darm + torch.eye(6, 3, dtype=r6.dtype)
+    dXF = (dp[..., :2] * dxy[..., None, :]).sum(-1) / XF[..., None]
+    dZF = dp[..., 2]
+    dHF = dHV[..., 0, 0, None] * dXF + dHV[..., 0, 1, None] * dZF
+    dVF = dHV[..., 1, 0, None] * dXF + dHV[..., 1, 1, None] * dZF
+    dm = dXF * _step(XF, 1e-9)[..., None]
+    du = (dp[..., :2] - u[..., None, :] * dm[..., None]) / m[..., None, None]
+    dF3 = torch.stack([
+        -(dHF * u[..., 0, None] + HF[..., None] * du[..., 0]),
+        -(dHF * u[..., 1, None] + HF[..., None] * du[..., 1]),
+        -dVF], dim=-1)
+    dM = cross(darm, F3[..., None, :]) + cross(arm[..., None, :], dF3)
+    df6 = torch.cat([dF3, dM], dim=-1).sum(-3).transpose(-1, -2)
+    return f6, df6, HF, VF, dHF, dVF
+
+
+def _tensions(HF, VF, L, w, Wp, cb, dHF=None, dVF=None):
+    """End tensions [TA..., TB...] [..., 2 nL] from the fairlead tensions,
+    and with the tangents dHF, dVF [..., nL, 6] also their derivatives
+    [..., 2 nL, 6]."""
+    W = torch.sum(w * L, dim=-1) + torch.sum(Wp, dim=-1)
+    VA = VF - W                     # vertical tension at the anchor end
+    TB = torch.sqrt(HF**2 + VF**2)
+    # grounded case: seabed friction decays the horizontal tension along
+    # the grounded length, HA = max(HF - cb w0 LB, 0) (MoorPy's CB branch)
+    w0 = w[..., 0]
+    L0 = L[..., 0]
+    Vb = VF - (W - w0 * L0)         # vertical tension atop the bottom segment
+    x = L0 - Vb / w0
+    zero = torch.zeros_like(L0)
+    LB = _clip(x, zero, L0)
+    y = HF - cb * w0 * LB
+    HA = torch.clamp(y, min=0.0)
+    TA_s = torch.sqrt(HF**2 + VA**2)
+    lifted = VA >= 0
+    T = torch.cat([torch.where(lifted, TA_s, HA), TB], dim=-1)
+    if dHF is None:
+        return T
+    e = lambda t: t[..., None]  # noqa: E731
+    dTB = (e(HF) * dHF + e(VF) * dVF) / e(TB)
+    dLB = -dVF / e(w0) * e(_clip_grad(x, zero, L0))
+    dHA = (dHF - e(cb * w0) * dLB) * e(_step(y, 0.0))
+    dTA = torch.where(e(lifted), (e(HF) * dHF + e(VA) * dVF) / e(TA_s), dHA)
+    return T, torch.cat([dTA, dTB], dim=-2)
 
 
 def line_forces(r6, anchors, rFair, L, EA, w, Wp=None, cb=None,
@@ -581,22 +710,8 @@ def line_forces(r6, anchors, rFair, L, EA, w, Wp=None, cb=None,
     Returns (f6 [..., 6], HF [..., nL], VF [..., nL]).
     """
     _no_bridles(bridles)
-    if Wp is None:
-        Wp = torch.zeros_like(L)
-    if cb is None:
-        cb = torch.zeros_like(L[..., 0])
-    R = rotation_matrix(r6[..., 3], r6[..., 4], r6[..., 5])
-    arm = torch.einsum("...ij,lj->...li", R, rFair)   # rotated fairleads
-    p = r6[..., None, :3] + arm                        # fairlead positions
-    dxy = p[..., :2] - anchors[:, :2]
-    XF = torch.sqrt(torch.sum(dxy**2, dim=-1))
-    ZF = p[..., 2] - anchors[:, 2]
-    HF, VF = catenary_solve(XF, ZF, L, EA, w, Wp, cb)
-    # vertical-line guard: the direction is irrelevant when XF ~ 0
-    u = dxy / torch.clamp(XF, min=1e-9)[..., None]
-    F3 = torch.stack([-HF * u[..., 0], -HF * u[..., 1], -VF], dim=-1)
-    f6 = torch.sum(translate_force_3to6(F3, arm), dim=-2)
-    return f6, HF, VF
+    Wp, cb = _defaults(L, Wp, cb)
+    return _lines(r6, anchors, rFair, L, EA, w, Wp, cb, tangents=False)
 
 
 def line_tensions(r6, anchors, rFair, L, EA, w, Wp=None, cb=None,
@@ -604,38 +719,31 @@ def line_tensions(r6, anchors, rFair, L, EA, w, Wp=None, cb=None,
     """End tensions [TA..., TB...] [..., 2 nL] (anchor ends first, then
     fairlead ends), MoorPy's getTensions order."""
     _no_bridles(bridles)
-    if Wp is None:
-        Wp = torch.zeros_like(L)
-    if cb is None:
-        cb = torch.zeros_like(L[..., 0])
-    _, HF, VF = line_forces(r6, anchors, rFair, L, EA, w, Wp, cb)
-    W = torch.sum(w * L, dim=-1) + torch.sum(Wp, dim=-1)
-    VA = VF - W                     # vertical tension at the anchor end
-    TB = torch.sqrt(HF**2 + VF**2)
-    # grounded case: seabed friction decays the horizontal tension along
-    # the grounded length, HA = max(HF - cb w0 LB, 0) (MoorPy's CB branch)
-    w0 = w[..., 0]
-    L0 = L[..., 0]
-    Vb = VF - (W - w0 * L0)         # vertical tension atop the bottom segment
-    LB = _clip(L0 - Vb / w0, torch.zeros_like(L0), L0)
-    HA = torch.clamp(HF - cb * w0 * LB, min=0.0)
-    TA = torch.where(VA >= 0, torch.sqrt(HF**2 + VA**2), HA)
-    return torch.cat([TA, TB], dim=-1)
+    Wp, cb = _defaults(L, Wp, cb)
+    _, HF, VF = _lines(r6, anchors, rFair, L, EA, w, Wp, cb, tangents=False)
+    return _tensions(HF, VF, L, w, Wp, cb)
 
 
 def body_hydrostatic_force(r6, m, v, rCG, rM, AWP, rho=1025.0, g=9.81):
     """Weight + buoyancy + waterplane heave stiffness of the rigid body at
     pose r6 [..., 6], buoyancy applied at the metacenter rM (MoorPy Body
-    convention)."""
+    convention), and its derivative in r6 [..., 6, 6]."""
     R = rotation_matrix(r6[..., 3], r6[..., 4], r6[..., 5])
     zero = torch.zeros((), dtype=r6.dtype)
     Fw = torch.stack([zero, zero, torch.as_tensor(-m * g, dtype=r6.dtype)])
     Fb = torch.stack([zero, zero,
                       torch.as_tensor(rho * v * g, dtype=r6.dtype)])
     f6 = translate_force_3to6(Fw, R @ rCG) + translate_force_3to6(Fb, R @ rM)
-    return torch.cat([f6[..., :2],
-                      f6[..., 2:3] + (-rho * g * AWP * r6[..., 2:3]),
-                      f6[..., 3:]], dim=-1)
+    f6 = torch.cat([f6[..., :2],
+                    f6[..., 2:3] + (-rho * g * AWP * r6[..., 2:3]),
+                    f6[..., 3:]], dim=-1)
+    dR = rotation_matrix_derivatives(r6[..., 3], r6[..., 4], r6[..., 5])
+    dM = (cross(torch.einsum("...ijk,j->...ki", dR, rCG), Fw)
+          + cross(torch.einsum("...ijk,j->...ki", dR, rM), Fb))
+    J = torch.zeros(r6.shape + (6,), dtype=r6.dtype)
+    J[..., 3:, 3:] = dM.transpose(-1, -2)
+    J[..., 2, 2] = -rho * g * AWP
+    return f6, J
 
 
 def solve_equilibrium(f6_ext, body_props, anchors, rFair, L, EA, w, Wp=None,
@@ -643,22 +751,16 @@ def solve_equilibrium(f6_ext, body_props, anchors, rFair, L, EA, w, Wp=None,
                       step_tol=1e-8):
     """Body poses r6 [..., 6] where mooring + hydrostatics + the external
     mean loads f6_ext [..., 6] balance: damped Newton with the exact
-    forward-mode Jacobian, per lane until its step is below ``step_tol``
-    (translations m, rotations rad) or ``iters`` is reached.  A converged
-    lane stops moving while the others go on.
+    Jacobian (the lines' tangents plus the body's), per lane until its
+    step is below ``step_tol`` (translations m, rotations rad) or
+    ``iters`` is reached.  A converged lane stops moving while the others
+    go on.
 
     body_props : (m, v, rCG[3], rM[3], AWP)
     """
     _no_bridles(bridles)
     m, v, rCG, rM, AWP = body_props
-    if Wp is None:
-        Wp = torch.zeros_like(L)
-
-    def total_force(r6):
-        f_lines, _, _ = line_forces(r6, anchors, rFair, L, EA, w, Wp, cb)
-        f_body = body_hydrostatic_force(r6, m, v, rCG, rM, AWP, rho, g)
-        return f_lines + f_body + f6_ext
-
+    Wp, cb = _defaults(L, Wp, cb)
     step_cap = torch.tensor([10.0, 10.0, 10.0, 0.1, 0.1, 0.1],
                             dtype=L.dtype)
     tol = step_tol + 100 * torch.finfo(L.dtype).eps
@@ -669,7 +771,12 @@ def solve_equilibrium(f6_ext, body_props, anchors, rFair, L, EA, w, Wp=None,
         active = err > tol
         if not bool(active.any()):
             break
-        F, J = value_and_jacfwd(total_force, r6)
+        f_lines, J_lines = _lines(r6, anchors, rFair, L, EA, w, Wp, cb,
+                                  tangents=True)[:2]
+        f_body, J_body = body_hydrostatic_force(r6, m, v, rCG, rM, AWP, rho,
+                                                g)
+        F = f_lines + f_body + f6_ext
+        J = J_lines + J_body
         # tiny Tikhonov damping: an all-slack mooring has exactly zero
         # horizontal stiffness (a neutral, singular equilibrium) whose
         # force components are zero too, so the damped solve returns a
@@ -688,20 +795,20 @@ def solve_equilibrium(f6_ext, body_props, anchors, rFair, L, EA, w, Wp=None,
 def coupled_stiffness(r6, anchors, rFair, L, EA, w, Wp=None, cb=None,
                       bridles=None):
     """Mooring-only stiffness C = -d f6_lines / d r6 [..., 6, 6] about
-    pose r6 (forward mode through the catenary solves)."""
+    pose r6 (the lines' tangents)."""
     _no_bridles(bridles)
-    _, J = value_and_jacfwd(
-        lambda r: line_forces(r, anchors, rFair, L, EA, w, Wp, cb)[0], r6)
-    return -J
+    Wp, cb = _defaults(L, Wp, cb)
+    return -_lines(r6, anchors, rFair, L, EA, w, Wp, cb, tangents=True)[1]
 
 
 def tension_jacobian(r6, anchors, rFair, L, EA, w, Wp=None, cb=None,
                      bridles=None):
     """J_moor = d tensions / d r6  [..., 2 nL, 6]."""
     _no_bridles(bridles)
-    _, J = value_and_jacfwd(
-        lambda r: line_tensions(r, anchors, rFair, L, EA, w, Wp, cb), r6)
-    return J
+    Wp, cb = _defaults(L, Wp, cb)
+    _, _, HF, VF, dHF, dVF = _lines(r6, anchors, rFair, L, EA, w, Wp, cb,
+                                    tangents=True)
+    return _tensions(HF, VF, L, w, Wp, cb, dHF, dVF)[1]
 
 
 def case_mooring(f6_ext, m, v, rCG, rM, AWP, anchors, rFair, L, EA, w,
@@ -709,23 +816,21 @@ def case_mooring(f6_ext, m, v, rCG, rM, AWP, anchors, rFair, L, EA, w,
                  yawstiff=0.0):
     """Per-case mooring analysis for mean loads f6_ext [nc, 6]: the
     equilibrium pose plus every linearized quantity the dynamics consumes
-    (reference raft/raft_model.py:332-392 calcMooringAndOffsets).
+    (reference raft/raft_model.py:332-392 calcMooringAndOffsets), the
+    linearizations from one tangent evaluation at the pose.
 
     Returns (r6 [nc,6], C_moor [nc,6,6], F_moor [nc,6], T_moor [nc,2nL],
     J_moor [nc,2nL,6], moor_resid [nc]); ``moor_resid`` is the bridle
     junction residual of the JAX package, always 0 here.
     """
     _no_bridles(bridles)
-    if Wp is None:
-        Wp = torch.zeros_like(L)
+    Wp, cb = _defaults(L, Wp, cb)
     lines = (anchors, rFair, L, EA, w, Wp, cb)
     r6 = solve_equilibrium(f6_ext, (m, v, rCG, rM, AWP), *lines,
                            rho=rho, g=g)
-    C_moor = coupled_stiffness(r6, *lines)
-    yaw = torch.zeros(6, 6, dtype=C_moor.dtype)
+    F_moor, df6, HF, VF, dHF, dVF = _lines(r6, *lines, tangents=True)
+    yaw = torch.zeros(6, 6, dtype=df6.dtype)
     yaw[5, 5] = yawstiff
-    C_moor = C_moor + yaw
-    F_moor = line_forces(r6, *lines)[0]
-    T_moor = line_tensions(r6, *lines)
-    J_moor = tension_jacobian(r6, *lines)
-    return r6, C_moor, F_moor, T_moor, J_moor, torch.zeros_like(r6[..., 0])
+    T_moor, J_moor = _tensions(HF, VF, L, w, Wp, cb, dHF, dVF)
+    return r6, -df6 + yaw, F_moor, T_moor, J_moor, torch.zeros_like(
+        r6[..., 0])

@@ -42,15 +42,31 @@ def rotation_matrix(x3, x2, x1):
     s2, c2 = torch.sin(x2), torch.cos(x2)
     s3, c3 = torch.sin(x3), torch.cos(x3)
     return torch.stack(
-        [
-            torch.stack([c1 * c2, c1 * s2 * s3 - c3 * s1,
-                         s1 * s3 + c1 * c3 * s2], dim=-1),
-            torch.stack([c2 * s1, c1 * c3 + s1 * s2 * s3,
-                         c3 * s1 * s2 - c1 * s3], dim=-1),
-            torch.stack([-s2, c2 * s3, c2 * c3], dim=-1),
-        ],
-        dim=-2,
-    )
+        [c1 * c2, c1 * s2 * s3 - c3 * s1, s1 * s3 + c1 * c3 * s2,
+         c2 * s1, c1 * c3 + s1 * s2 * s3, c3 * s1 * s2 - c1 * s3,
+         -s2, c2 * s3, c2 * c3], dim=-1).unflatten(-1, (3, 3))
+
+
+def rotation_matrix_derivatives(x3, x2, x1):
+    """The partial derivatives of :func:`rotation_matrix` with respect to
+    roll ``x3``, pitch ``x2`` and yaw ``x1`` -> [..., 3, 3, 3], the last
+    axis in that order."""
+    s1, c1 = torch.sin(x1), torch.cos(x1)
+    s2, c2 = torch.sin(x2), torch.cos(x2)
+    s3, c3 = torch.sin(x3), torch.cos(x3)
+    z = torch.zeros_like(s1)
+    # entry (i, j) of d/droll, d/dpitch, d/dyaw, row by row
+    return torch.stack([
+        z, -c1 * s2, -s1 * c2,
+        c1 * s2 * c3 + s3 * s1, c1 * c2 * s3, -s1 * s2 * s3 - c3 * c1,
+        s1 * c3 - c1 * s3 * s2, c1 * c3 * c2, c1 * s3 - s1 * c3 * s2,
+        z, -s2 * s1, c2 * c1,
+        -c1 * s3 + s1 * s2 * c3, s1 * c2 * s3, -s1 * c3 + c1 * s2 * s3,
+        -s3 * s1 * s2 - c1 * c3, c3 * s1 * c2, c3 * c1 * s2 + s1 * s3,
+        z, -c2, z,
+        c2 * c3, -s2 * s3, z,
+        -c2 * s3, -s2 * c3, z,
+    ], dim=-1).unflatten(-1, (3, 3, 3))
 
 
 def translate_force_3to6(F, r):

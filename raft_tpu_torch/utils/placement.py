@@ -3,8 +3,9 @@
 - The batched case dynamics runs on ``cuda`` unless the caller asks for
   ``device="cpu"``.  Asking for the default on a machine without CUDA
   raises; nothing carries on quietly on the CPU.
-- Host stages (statics, the mooring Newton, the response metrics) run
-  on the CPU in float64, as in the JAX package.
+- Host stages (statics, the rotor, the mooring Newton, the response
+  metrics) run on the CPU in float64, as in the JAX package; the case
+  prep runs them on one CPU thread (:func:`host_threads`).
 - The working dtype of the dynamics defaults to float64;
   ``precision="float32"`` is accepted too.  ``precision`` names the
   working dtype only: mixed precision is ``Model(...,
@@ -13,6 +14,8 @@
   (the JAX package pins ``jax.default_matmul_precision("highest")`` for
   the same reason).
 """
+
+import contextlib
 
 import torch
 
@@ -53,3 +56,22 @@ def resolve_dtype(precision=None):
 def complex_dtype(dtype):
     """The complex dtype whose parts are ``dtype``."""
     return torch.complex64 if dtype == torch.float32 else torch.complex128
+
+
+@contextlib.contextmanager
+def host_threads():
+    """Run the enclosed host stage on one intra-op CPU thread.
+
+    The host stages work on tiny tensors (cases x lines, cases x blade
+    sections): a multi-threaded CPU pool does not make them faster, and
+    on a shared host a call can stall on a pool thread that is not
+    scheduled (``tests/torch_host_prep_timing.py --ops`` times both
+    thread counts).  The thread count is global to the process, so CPU
+    work of other Python threads runs on one thread meanwhile; it is
+    restored on exit."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)

@@ -16,7 +16,7 @@ import raft_tpu_torch
 from raft_tpu_torch import bem_solver as tb
 from raft_tpu_torch import mesh as tm
 from raft_tpu_torch.convert import case_args_from_numpy
-from raft_tpu_torch.designs import deep_spar
+from raft_tpu_torch.designs import deep_spar, demo_semi_aero
 from raft_tpu_torch.dynamics import gauss_solve
 from raft_tpu_torch.geometry import HydroNodes
 from raft_tpu_torch.kernels import bem_gj as bg
@@ -388,3 +388,33 @@ def test_solve_bem_card_form_on_the_card(cuda, monkeypatch):
                        device="cpu")
     for k, bar in (("A", 2e-4), ("B", 1e-3), ("X", 2e-4)):
         assert np.abs(out[k] - ref[k]).max() <= bar * np.abs(ref[k]).max()
+
+
+def test_aero_design_on_the_card_matches_the_cpu(cuda):
+    """The aero design (per-case, per-frequency M_lin/B_lin from the
+    rotor's hub terms; wind at 8, 10 and 12 m/s, so the pitch controller
+    acts in the last case) through gj_solve on the card against the same
+    port run on the CPU: Xi and every case_metrics channel within 1e-8 of
+    its scale; the waterfall bit-identical to the legacy solve."""
+    def design():
+        return demo_semi_aero(n_cases=4, n_wind=3, nw_settings=(0.05, 0.6))
+
+    runs = {}
+    for dev in ("cpu", None):
+        m = raft_tpu_torch.Model(design(), device=dev)
+        m.analyze_unloaded()
+        m.analyze_cases()
+        runs[dev] = m
+    cpu, card = runs["cpu"], runs[None]
+    assert card.device.type == "cuda"
+    scale = np.abs(cpu.Xi).max()
+    assert np.abs(card.Xi - cpu.Xi).max() <= 1e-8 * scale
+    mc, mg = cpu.results["case_metrics"], card.results["case_metrics"]
+    for ch in ("omega_std", "torque_std", "bPitch_std", "power_avg"):
+        assert np.abs(mc[ch]).max() > 0, ch
+    for ch in mc:
+        ref = np.abs(mc[ch]).max()
+        assert np.abs(mg[ch] - mc[ch]).max() <= 1e-8 * ref, ch
+    legacy = card.Xi.copy()
+    card.analyze_cases(fixed_point="waterfall")
+    np.testing.assert_array_equal(card.Xi, legacy)

@@ -4,6 +4,7 @@ tests/test_kernels.py (1e-10 on the wave kinematics)."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,6 +54,17 @@ def test_frames_match():
     np.testing.assert_allclose(tf.translate_matrix_6to6(T(M6), T(r)),
                                jf.translate_matrix_6to6(M6, r),
                                rtol=1e-13, atol=1e-13)
+
+
+def test_rotation_matrix_derivatives_match_jacfwd():
+    """The written-out d R / d (roll, pitch, yaw) the mooring tangents use
+    against jax.jacfwd of raft_tpu's rotation_matrix."""
+    for ang in rng.normal(size=(4, 3)):
+        J = jax.jacfwd(lambda a: jf.rotation_matrix(a[0], a[1], a[2]))(
+            jnp.asarray(ang))
+        np.testing.assert_allclose(
+            tf.rotation_matrix_derivatives(*(T(a) for a in ang)), J,
+            rtol=1e-14, atol=1e-15)
 
 
 # ---------------- waves ----------------

@@ -1,7 +1,10 @@
 """The port's whole slice against raft_tpu on the CPU: Model (statics,
-eigenfrequencies, Xi, the SolveReport and every case_metrics channel), the
-device pipeline fed the JAX model's own inputs through raft_tpu_torch.
-convert, and the fault cases of tests/test_fault_injection.py."""
+eigenfrequencies, Xi, the SolveReport and every case_metrics channel,
+the rotor channels included) on the spar, the semi and the semi with the
+rotor in aeroServoMod 1 and 2, the device pipeline fed the JAX model's
+own inputs through raft_tpu_torch.convert, the waterfall and fused modes
+on the aero design, and the fault cases of
+tests/test_fault_injection.py."""
 
 import dataclasses
 
@@ -11,19 +14,30 @@ import pytest
 import torch
 
 import raft_tpu
-from raft_tpu.designs import deep_spar, demo_semi
+from raft_tpu.designs import deep_spar, demo_semi, demo_semi_aero
 from raft_tpu.dynamics import solve_complex_6x6_ladder as jax_ladder
 import raft_tpu_torch
 from raft_tpu_torch.convert import case_args_from_numpy, nodes_from_numpy
 from raft_tpu_torch.dynamics import solve_complex_6x6_ladder
 from raft_tpu_torch.model import make_case_dynamics
+from raft_tpu_torch.serve.buckets import SlotPhysics
+from raft_tpu_torch.waterfall import last_dispatch_stats, waterfall_dispatch
 
 RTOL = 1e-8          # the bar of tests/test_parity.py
-DESIGNS = {"spar": deep_spar, "semi": demo_semi}
+NW = (0.05, 0.6)
+DESIGNS = {
+    "spar": lambda: deep_spar(n_cases=2, nw_settings=NW),
+    "semi": lambda: demo_semi(n_cases=2, nw_settings=NW),
+    # three cases, the last two with wind (8 and 10 m/s)
+    "aero1": lambda: demo_semi_aero(n_cases=3, n_wind=2, nw_settings=NW,
+                                    aeroServoMod=1),
+    "aero2": lambda: demo_semi_aero(n_cases=3, n_wind=2, nw_settings=NW,
+                                    aeroServoMod=2),
+}
 
 
 def _design(name):
-    return DESIGNS[name](n_cases=2, nw_settings=(0.05, 0.6))
+    return DESIGNS[name]()
 
 
 def _close(a, b, rtol=RTOL):
@@ -205,12 +219,14 @@ def test_recovery_ladder_tikhonov_on_singular_Z():
                                rtol=1e-10)
 
 
-def test_model_without_device_needs_cuda(monkeypatch):
+@pytest.mark.parametrize("name", ["spar", "aero2"])
+def test_model_without_device_needs_cuda(monkeypatch, name):
     """Model(design) with no device runs on the card, so without CUDA it
-    raises instead of carrying on on the CPU."""
+    raises instead of carrying on on the CPU (the rotor's host work
+    included)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        raft_tpu_torch.Model(_design("spar"))
+        raft_tpu_torch.Model(_design(name))
 
 
 def test_unported_paths_raise_not_implemented():
@@ -243,3 +259,62 @@ def test_fused_mode_refuses_mixed_precision():
     with pytest.raises(ValueError, match="mixed_precision=True"):
         raft_tpu_torch.Model(_design("spar"), device="cpu",
                              precision="mixed")
+
+
+def test_aero_design_waterfall_and_fused_match_legacy():
+    """The aero design's per-case, per-frequency M_lin/B_lin through the
+    engines on the CPU: the waterfall bit-identical to the legacy solve,
+    the fused mode (the kernel's plain version) with identical flags and
+    Xi within rtol 1e-8 / atol 1e-12."""
+    tm = raft_tpu_torch.Model(_design("aero2"), device="cpu")
+    tm.analyze_unloaded()
+    args, _ = tm.prepare_case_inputs(verbose=False)
+    M_lin, B_lin = args[3], args[4]
+    assert np.abs(M_lin[1:] - M_lin[:1]).max() > 0          # per case
+    assert np.abs(B_lin[1:, 1:] - B_lin[1:, :1]).max() > 0  # per frequency
+    out = {}
+    for mode in ("legacy", "waterfall", "fused"):
+        tm.analyze_cases(fixed_point=mode)
+        out[mode] = (tm.Xi.copy(), tm.solve_report)
+    xl, rl = out["legacy"]
+    xw, rw = out["waterfall"]
+    xf, rf = out["fused"]
+    np.testing.assert_array_equal(xw, xl)
+    for name in ("converged", "iters", "nonfinite", "recovery_tier"):
+        np.testing.assert_array_equal(getattr(rw, name), getattr(rl, name))
+        np.testing.assert_array_equal(getattr(rf, name), getattr(rl, name))
+    np.testing.assert_allclose(xf, xl, rtol=1e-8, atol=1e-12)
+
+
+def test_aero_megabatch_compaction_carries_per_lane_M_B():
+    """16 lanes of the aero design's 3 cases, zeta scaled over six
+    decades so the lanes converge at 6 to 11 trips: the waterfall
+    compacts the survivors down the lane ladder, each lane with its own
+    M_lin/B_lin, and stays bit-identical to the legacy batch; the fused
+    mode keeps the flags and Xi within rtol 1e-8 / atol 1e-12."""
+    tm = raft_tpu_torch.Model(_design("aero2"), device="cpu")
+    tm.analyze_unloaded()
+    args, _ = tm.prepare_case_inputs(verbose=False)
+    L = 16
+    a = [np.concatenate([np.asarray(x)] * 6)[:L] for x in args]
+    a[0] = a[0] * np.geomspace(1e-3, 1e3, L)[:, None]
+    assert np.abs(a[3][1] - a[3][0]).max() > 0     # per-lane M_lin
+    dev = case_args_from_numpy(a, "cpu", torch.float64)
+    nodes = tm.nodes.to("cpu", torch.float64)
+    physics = SlotPhysics.from_model(tm)
+    ref = make_case_dynamics(tm.w, tm.k, tm.depth, tm.rho_water, tm.g,
+                             tm.XiStart, tm.nIter, torch.float64,
+                             "cpu")(nodes, *dev)
+    wf = waterfall_dispatch(physics, nodes, dev, shared_nodes=True)
+    rungs = last_dispatch_stats()["rungs"]
+    assert min(rungs) < max(rungs), rungs
+    assert len(set(ref[2].iters.tolist())) > 2
+    for x, y in zip(wf[:2], ref[:2]):
+        assert torch.equal(x, y)
+    assert all(torch.equal(x, y) for x, y in zip(wf[2], ref[2]))
+    fu = waterfall_dispatch(physics, nodes, dev, shared_nodes=True,
+                            kernel=True)
+    for name in ("converged", "iters", "nonfinite", "recovery_tier"):
+        assert torch.equal(getattr(fu[2], name), getattr(ref[2], name))
+    for x, y in zip(fu[:2], ref[:2]):
+        torch.testing.assert_close(x, y, rtol=1e-8, atol=1e-12)

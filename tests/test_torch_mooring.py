@@ -5,6 +5,7 @@ C_moor0/F_moor0 and per-case r6, C_moor, T_moor, J_moor."""
 
 import copy
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,3 +152,107 @@ def test_bridled_design_raises_not_implemented():
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Model(d, device="cpu")
+
+
+# single lines (L, EA, w, Wp, cb) at spans (XF, ZF) in three regimes
+_CHAIN = ([835.0], [3.84e8], [650.0], [0.0], 0.0)
+_COMPOSITE = ([480.0, 420.0], [3.84e8, 1.5e8], [650.0, 140.0],
+              [2.4e4, 0.0], 0.3)
+_TANGENT_CASES = {
+    "taut": (_CHAIN, 800.0, 250.0),
+    "touchdown": (_CHAIN, 700.0, 186.0),
+    "touchdown_friction": (_CHAIN[:4] + (0.4,), 700.0, 186.0),
+    "suspended": (_CHAIN, 780.0, 220.0),
+    "fully_slack": (_CHAIN, 300.0, 250.0),
+    "composite": (_COMPOSITE, 760.0, 190.0),
+}
+
+
+def _line_tensors(line, XF, ZF):
+    L, EA, w, Wp, cb = line
+    t = lambda a: torch.tensor(a, dtype=torch.float64)  # noqa: E731
+    return t(XF), t(ZF), t(L), t(EA), t(w), t(Wp), cb
+
+
+@pytest.mark.parametrize("case", sorted(_TANGENT_CASES))
+def test_catenary_tangents_match_jax_jacfwd(case):
+    """d(HF, VF)/d(XF, ZF) of the port's implicit rule against
+    jax.jacfwd through raft_tpu.mooring.catenary_solve (custom_root)."""
+    line, XF, ZF = _TANGENT_CASES[case]
+    L, EA, w, Wp, cb = line
+
+    def jfun(xz):
+        return jnp.stack(jm.catenary_solve(
+            xz[0], xz[1], jnp.asarray(L), jnp.asarray(EA), jnp.asarray(w),
+            jnp.asarray(Wp), cb))
+
+    xz = jnp.asarray([XF, ZF])
+    HVj = np.asarray(jfun(xz))
+    Jj = np.asarray(jax.jacfwd(jfun)(xz))
+    Ht, Vt, dHV = tm.catenary_solve(*_line_tensors(line, XF, ZF),
+                                    tangents=True)
+    _close([Ht.item(), Vt.item()], HVj, rtol=1e-10)
+    _close(dHV.numpy(), Jj, rtol=1e-10)
+
+
+@pytest.mark.parametrize("case", sorted(_TANGENT_CASES))
+def test_catenary_reverse_gradient_matches_jax_grad(case):
+    """The reverse-mode gradient through _CatenaryRoot against jax.grad
+    of the same weighted sum of (HF, VF)."""
+    line, XF, ZF = _TANGENT_CASES[case]
+    L, EA, w, Wp, cb = line
+    a, b = 0.7, -1.3
+
+    def jfun(x, z):
+        H, V = jm.catenary_solve(x, z, jnp.asarray(L), jnp.asarray(EA),
+                                 jnp.asarray(w), jnp.asarray(Wp), cb)
+        return a * H + b * V
+
+    gj = np.asarray(jax.grad(jfun, argnums=(0, 1))(jnp.float64(XF),
+                                                    jnp.float64(ZF)))
+    XFt, ZFt, *rest = _line_tensors(line, XF, ZF)
+    XFt.requires_grad_(True)
+    ZFt.requires_grad_(True)
+    H, V = tm.catenary_solve(XFt, ZFt, *rest)
+    (a * H + b * V).backward()
+    _close([XFt.grad.item(), ZFt.grad.item()], gj, rtol=1e-10)
+
+
+_FUNCTORCH = ("vmap", "jvp", "jacfwd", "jacrev", "vjp", "hessian")
+
+
+@pytest.mark.parametrize("name", ["flagship", "aero"])
+def test_host_prep_runs_no_functorch_transform(monkeypatch, name):
+    """prepare_case_inputs of the flagship (128 w x 12 cases) and of the
+    aero design at the same width, with every torch.func transform — and
+    any name a port module bound to one — patched to raise: the mooring
+    linearizations and the rotor derivatives carry their tangents
+    explicitly, so no functorch transform may come back unnoticed."""
+    import sys
+
+    import raft_tpu_torch
+    from raft_tpu_torch import designs
+
+    def refuse(*a, **k):
+        raise AssertionError("a torch.func transform ran in host prep")
+
+    originals = {getattr(torch.func, f) for f in _FUNCTORCH}
+    for f in _FUNCTORCH:
+        monkeypatch.setattr(torch.func, f, refuse)
+    monkeypatch.setattr(torch, "vmap", refuse)
+    for mod in [m for k, m in sys.modules.items()
+                if k.startswith("raft_tpu_torch")]:
+        for attr, val in list(vars(mod).items()):
+            if any(val is o for o in originals):
+                monkeypatch.setattr(mod, attr, refuse)
+    assert not getattr(tm._CatenaryRoot, "generate_vmap_rule", False)
+    design = designs.flagship(0.00625, 0.8, 12) if name == "flagship" \
+        else designs.demo_semi_aero(n_cases=12, n_wind=6,
+                                    nw_settings=(0.00625, 0.8))
+    m = raft_tpu_torch.Model(design, device="cpu")
+    m.analyze_unloaded()
+    args, aux = m.prepare_case_inputs(verbose=False)
+    assert np.isfinite(args[2]).all() and np.isfinite(args[3]).all()
+    assert np.isfinite(aux["J_moor"]).all()
+    if name == "aero":
+        assert (np.abs(aux["F_aero0"][6:, 0]) > 1e5).all()

@@ -80,6 +80,33 @@ Phases (each prints a line; any failure raises and exits non-zero):
 14. the main path with those coefficients: ``analyze_cases`` in float64
     on the card, every case converged, Xi within 1e-8 of the CPU run
     with the same coefficients.
+15. the bridled main path: ``demo_semi_bridled`` (line 1 a crow's-foot
+    bridle, 128 frequencies x 12 cases) through ``Model`` on the card in
+    the legacy, waterfall and fused modes (the warm calls timed, host
+    prep / dynamics): junction residual below 1e-5, the waterfall
+    bit-identical to legacy, the fused mode within rtol 1e-8, Xi and
+    every tension channel within 1e-8 of the CPU run;
+16. ``analyze_unloaded(ballast=1 | 2)`` of the semi and the bridled semi
+    on the card against the CPU: the trimmed fills and the residual
+    heave bit for bit (host work);
+17. the headline sweep: ``run_draft_ballast_sweep`` of the aero semi
+    (12 cases x 128 frequencies, six with wind) over 16 drafts (0.9-1.1)
+    x 16 ballast density scales (1.2-1.8), draft groups of 4 (each one waterfall descent of 768 lanes
+    at the 1024 rung), in the waterfall and fused modes and once more in
+    the waterfall mode with the case-axis overlap: total time, time per
+    design, the stage split, the launches, the rungs and padding share,
+    the guided-rotor lane accounting, non-converged and retried lanes,
+    peak device memory; rows (0, 0), (7, 9), (15, 15) against the direct
+    ``Model`` on the card within raft_tpu's bars; fused against waterfall
+    within 1e-8; ``gj_solve`` and ``fused_block`` against their plain
+    versions on the sweep's own 1024-lane operands; the draft prep on
+    one thread and on eight;
+18. ``run_design_sweep`` of 16 bridled semis (main leg 750-780 m) with
+    the density trim against the direct ``Model`` (every design's
+    delta_rho to 1e-6; designs 0, 8 and 15's Xi0 and T_moor to 1e-8 and
+    |Xi| within raft_tpu's bars), and
+    ``run_sweep`` of the semi's 6-point grid run again from its
+    checkpoints, bit-identical.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  In the kernel table ``ms`` is the
@@ -709,6 +736,440 @@ def aero_phase(rt, Timers):
     return {m: out[m]["launches"] for m in out}
 
 
+# ------------------------------------------------- bridles and ballast
+
+def bridled_design(rt):
+    return rt.designs.demo_semi_bridled(12, (0.00625, 0.8))
+
+
+def bridled_phase(rt, Timers):
+    """Phase 15: the bridled semi through Model on the card in the three
+    fixed-point modes (one Model; each warm call with the launch counts
+    set to 0 just before it), held against the same port run on the
+    CPU."""
+    from raft_tpu_torch.kernels import fused_block as fk
+    from raft_tpu_torch.kernels import gj_solve as gk
+
+    model = rt.Model(bridled_design(rt))
+    model.analyze_unloaded()
+    model.analyze_cases()
+    out = {}
+    for mode in ("legacy", "waterfall", "fused"):
+        gk.launches = fk.launches = 0
+        with Timers() as tm:
+            with tm.time("analyze_cases"):
+                model.analyze_cases(fixed_point=mode)
+        out[mode] = dict(
+            Xi=model.Xi.copy(), report=model.solve_report,
+            launches=dict(gj_solve=gk.launches, fused_block=fk.launches),
+            times={k: v["total_s"] for k, v in tm.report().items()},
+            T={k: model.results["case_metrics"][k].copy()
+               for k in ("Tmoor_avg", "Tmoor_std")})
+    leg, wf, fu = out["legacy"], out["waterfall"], out["fused"]
+    rep = leg["report"]
+    if model.ms.bridles is None or leg["Xi"].shape != (12, 6, 128):
+        raise AssertionError("the bridled design did not run")
+    if not rep.converged.all() or not np.isfinite(leg["Xi"]).all():
+        raise AssertionError(f"unhealthy bridled cases: {rep}")
+    resid = float(np.max(model.moor_resid))
+    if not resid < 1e-5:
+        raise AssertionError(f"bridle junction residual {resid} >= 1e-5")
+    if not (np.array_equal(wf["Xi"], leg["Xi"])
+            and same_report(wf["report"], rep)):
+        raise AssertionError("bridled waterfall is not bit-identical to "
+                             "legacy")
+    for f in ("converged", "iters", "nonfinite", "recovery_tier"):
+        if not np.array_equal(getattr(fu["report"], f), getattr(rep, f)):
+            raise AssertionError(f"bridled fused {f} differs from legacy")
+    np.testing.assert_allclose(fu["Xi"], leg["Xi"], rtol=1e-8, atol=1e-12)
+    cpu = rt.Model(bridled_design(rt), device="cpu")
+    cpu.analyze_unloaded()
+    cpu.analyze_cases()
+    xi_rel = np.abs(leg["Xi"] - cpu.Xi).max() / np.abs(cpu.Xi).max()
+    mc = cpu.results["case_metrics"]
+    t_rel = max(np.abs(leg["T"][k] - mc[k]).max() / np.abs(mc[k]).max()
+                for k in leg["T"])
+    if not (xi_rel <= 1e-8 and t_rel <= 1e-8):
+        raise AssertionError(f"bridled card vs CPU: Xi rel {xi_rel}, "
+                             f"tension rel {t_rel}")
+    print(f"phase bridled main path: nw={model.nw} cases=12 tension_"
+          f"channels={leg['T']['Tmoor_avg'].shape[1]} moor_resid_max="
+          f"{resid:.3e} legacy: gj_launches={leg['launches']['gj_solve']} "
+          f"{split(leg['times'])} | waterfall: bit_identical_to_legacy=True "
+          f"{split(wf['times'])} | fused: flags_identical=True "
+          f"fused_launches={fu['launches']['fused_block']} "
+          f"{split(fu['times'])} | xi_rel_vs_cpu={xi_rel:.3e} "
+          f"tension_rel_vs_cpu={t_rel:.3e}", flush=True)
+    return {m: out[m]["launches"] for m in out}
+
+
+def _heave(model):
+    st = model.statics
+    sumFz = (-st.mass * model.g + st.V * model.rho_water * model.g
+             + model.F_moor0[2])
+    return sumFz / (model.rho_water * model.g * st.AWP)
+
+
+def ballast_phase(rt):
+    """Phase 16: analyze_unloaded(ballast=1 | 2) of the semi and the
+    bridled semi on the card against the CPU: host work, equal bits."""
+    parts = []
+    for name, design in (("semi", flagship), ("bridled", bridled_design)):
+        for ballast in (1, 2):
+            got = []
+            for device in (None, "cpu"):
+                m = rt.Model(design(rt), device=device)
+                m.analyze_unloaded(ballast=ballast)
+                got.append(([np.atleast_1d(x.l_fill).tolist()
+                             for x in m.members],
+                            [np.atleast_1d(x.rho_fill).tolist()
+                             for x in m.members], _heave(m)))
+            if got[0] != got[1]:
+                raise AssertionError(f"{name} ballast={ballast}: card and "
+                                     f"CPU trims differ: {got}")
+            parts.append(f"{name} ballast={ballast}: l_fill[0]="
+                         f"{got[0][0][0]} rho_fill[0]={got[0][1][0]} "
+                         f"heave={got[0][2]:.4e}")
+    print("phase ballast: equal bits card/CPU; " + "; ".join(parts),
+          flush=True)
+
+
+# ------------------------------------------------------- the sweeps
+
+# the headline sweep's grid: 16 x 16 as bench_sweep.py's, with ranges
+# that keep the in-repo semi upright (bench_sweep.py's 0.85-1.15 x
+# 0.25-1.75 are VolturnUS-S's; on this semi, ballast below ~1.1x leaves
+# GMT near or below zero and mean pitches of tens of degrees): every
+# design here has GMT > 3.5 m and a mean pitch within 5 degrees
+DRAFTS = np.linspace(0.9, 1.1, 16)
+BALLASTS = np.linspace(1.2, 1.8, 16)
+CHECK_ROWS = ((0, 0), (7, 9), (15, 15))
+# drafts per dynamics dispatch, and the rung its 4 x 16 x 12 = 768 lanes
+# take
+DRAFT_GROUP = 4
+SWEEP_RUNG = 1024
+# raft_tpu's CPU figure for its 256-design sweep of VolturnUS-S (PERF.md),
+# printed for orientation only: another design on another machine
+RAFT_TPU_CPU_MS_PER_DESIGN_VOLTURNUS = 263.97
+
+
+class _Capture:
+    """Wraps a kernel's entry: keeps a copy of the inputs of the first
+    call whose argument ``arg`` has ``lanes`` rows, and forwards every
+    call."""
+
+    def __init__(self, fn, lanes, arg=0):
+        self.fn, self.lanes, self.arg = fn, lanes, arg
+        self.args = self.kw = None
+
+    def __call__(self, *args, **kw):
+        if self.args is None and args[self.arg].shape[0] == self.lanes:
+            clone = lambda a: a.clone() if isinstance(a, torch.Tensor) \
+                else a  # noqa: E731
+            self.args = tuple(tuple(clone(t) for t in a)
+                              if isinstance(a, tuple)
+                              else (type(a)(**{k: clone(v) for k, v in
+                                               vars(a).items()})
+                                    if hasattr(a, "submerged") else clone(a))
+                              for a in args)
+            self.kw = dict(kw)
+        return self.fn(*args, **kw)
+
+
+def _ballast_point(rt, design, draft, ballast):
+    from raft_tpu_torch.sweep_fused import scale_draft
+
+    d = scale_draft(design, draft)
+    for mem in d["platform"]["members"]:
+        rf = mem.get("rho_fill")
+        if rf is not None:
+            mem["rho_fill"] = ([float(x) * ballast for x in rf]
+                               if isinstance(rf, (list, tuple))
+                               else float(rf) * ballast)
+    return d
+
+
+def headline_sweep_phase(rt, card):
+    """Phase 17: the 256-design draft x ballast sweep of the aero semi
+    (12 cases x 128 w, six with wind) on the card, waterfall and fused,
+    each draft group of 4 drafts x 16 ballasts x 12 cases one descent at
+    the 1024-lane rung; three rows held against the direct Model; the
+    kernels held against their plain versions on the sweep's own
+    1024-lane operands; then both engines again with the case-axis
+    overlap (overlap=True); and the guided rotor's guards at the sweep's
+    scale (:func:`guided_rotor_check`)."""
+    import raft_tpu_torch.dynamics as dyn
+    import raft_tpu_torch.sweep_fused as sf
+    import raft_tpu_torch.waterfall as wfm
+    from raft_tpu_torch.kernels import fused_block as fk
+    from raft_tpu_torch.kernels import gj_solve as gk
+
+    base = aero_design(rt)
+    # the host prep's thread count, measured where this runs: the sweep's
+    # cold draft prep in order on one thread against a pool of 8
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raft_tpu_torch.utils.placement import host_threads
+
+    prep = lambda s: sf._prepare_draft(base, s, 1025.0, 9.81)  # noqa: E731
+    prep_s = {}
+    for workers in (1, 8):
+        t0 = time.perf_counter()
+        with host_threads(), ThreadPoolExecutor(workers) as ex:
+            list(ex.map(prep, DRAFTS))
+        prep_s[workers] = time.perf_counter() - t0
+    runs = {}
+    for mode, overlap in (("waterfall", "auto"), ("fused", "auto"),
+                          ("waterfall", True), ("fused", True)):
+        cap_gj = _Capture(dyn.gj_solve, SWEEP_RUNG * 128)
+        cap_fb = _Capture(wfm.fused_block, SWEEP_RUNG, arg=1)
+        dyn.gj_solve, wfm.fused_block = cap_gj, cap_fb
+        gk.launches = fk.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            res = sf.run_draft_ballast_sweep(
+                base, DRAFTS, BALLASTS, draft_group=DRAFT_GROUP,
+                return_xi=True,
+                verbose=False, fixed_point=mode, overlap=overlap)
+        finally:
+            dyn.gj_solve, wfm.fused_block = cap_gj.fn, cap_fb.fn
+        total = time.perf_counter() - t0
+        runs[(mode, overlap)] = dict(
+            res=res, total=total, cap_gj=cap_gj, cap_fb=cap_fb,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=dict(gj_solve=gk.launches, fused_block=fk.launches))
+    wf, fu = runs[("waterfall", "auto")], runs[("fused", "auto")]
+    r = wf["res"]
+    if not r["converged"].any() or not np.isfinite(r["std"]).all():
+        raise AssertionError("headline sweep unhealthy")
+    if r["Xi"].shape != (len(DRAFTS), len(BALLASTS), 12, 6, 128):
+        raise AssertionError(f"unexpected sweep shape {r['Xi'].shape}")
+    st = r["dispatch_stats"]
+    n_groups = len(DRAFTS) // DRAFT_GROUP
+    if st["lanes_padded"] != n_groups * SWEEP_RUNG \
+            or SWEEP_RUNG not in st["rungs"]:
+        raise AssertionError(f"the sweep did not run the 1024 rung: {st}")
+    for f in ("converged", "iters", "nonfinite", "recovery_tier"):
+        if not np.array_equal(fu["res"][f], r[f]):
+            raise AssertionError(f"sweep fused {f} differs from waterfall")
+    for key in ("std", "Xi"):
+        np.testing.assert_allclose(fu["res"][key], r[key], rtol=1e-8,
+                                   atol=1e-12)
+    # the case-chunked overlap (overlap=True) against one dispatch
+    for mode, one in (("waterfall", wf), ("fused", fu)):
+        np.testing.assert_allclose(runs[(mode, True)]["res"]["std"],
+                                   one["res"]["std"], rtol=1e-12, atol=0)
+    # three rows against the direct Model on the card (raft_tpu's bars,
+    # tests/test_sweep_fused.py:84-170)
+    for iD, iB in CHECK_ROWS:
+        m = rt.Model(_ballast_point(rt, base, DRAFTS[iD], BALLASTS[iB]))
+        m.analyze_unloaded()
+        m.analyze_cases()
+        if abs(r["mass"][iD, iB] - m.statics.mass) > 1e-12 * m.statics.mass:
+            raise AssertionError(f"row {iD, iB}: mass differs")
+        np.testing.assert_allclose(r["Xi0"][iD, iB],
+                                   m.results["means"]["platform offset"],
+                                   rtol=1e-6, atol=1e-10)
+        np.testing.assert_allclose(np.abs(r["Xi"][iD, iB]), np.abs(m.Xi),
+                                   rtol=2e-5, atol=1e-7)
+    # the kernels on the sweep's own operands at its 1024-lane rung
+    checks = {}
+    for name, cap in (("gj_solve", wf["cap_gj"]),
+                      ("fused_block", fu["cap_fb"])):
+        if cap.args is None:
+            raise AssertionError(f"{name} never ran at the 1024 rung")
+    out_k, piv_k = gk.gj_solve(*wf["cap_gj"].args)
+    out_p, piv_p = gk.gj_solve_reference(*wf["cap_gj"].args)
+    torch.cuda.synchronize()
+    fin = ~torch.isnan(out_p)
+    if not (torch.equal(torch.isnan(out_k), ~fin)
+            and torch.equal(out_k[fin], out_p[fin])):
+        raise AssertionError("gj_solve at the sweep rung differs from its "
+                             "plain version")
+    checks["gj_solve"] = (wf["cap_gj"].args[0].shape[0], 0.0)
+    a, kw = fu["cap_fb"].args, fu["cap_fb"].kw
+    out_k = fk.fused_block(*a, **kw)
+    out_p = fk.fused_block_reference(*a, **kw)
+    torch.cuda.synchronize()
+    for k in (0, 4, 5):
+        if not torch.equal(out_k[k], out_p[k]):
+            raise AssertionError(f"fused_block at the sweep rung: output "
+                                 f"{k} differs from its plain version")
+    err = max((out_k[k] - out_p[k]).abs().max().item() for k in (1, 2, 3))
+    x_max = max(out_p[k].abs().max().item() for k in (1, 2, 3))
+    if not err <= 1e-12 * x_max:
+        raise AssertionError(f"fused_block at the sweep rung: {err} > "
+                             f"1e-12 * {x_max}")
+    G = fk.launch_shape(a[1].shape[1], a[1].shape[-1], a[1].dtype)[0]
+    checks["fused_block"] = (a[1].shape[0], err)
+    for (mode, overlap), run in runs.items():
+        res = run["res"]
+        tm, tel, st = res["timing"], res["rotor_telemetry"], \
+            res["dispatch_stats"]
+        pad = 1.0 - st["n_lanes"] / st["lanes_padded"]
+        nd, nc, nw = res["Xi"].shape[0] * res["Xi"].shape[1], \
+            res["Xi"].shape[2], res["Xi"].shape[-1]
+        print(f"phase headline sweep {mode} overlap={overlap}: {card} "
+              f"designs={nd} cases={nc} nw={nw} total_s={run['total']:.3f} "
+              f"ms_per_design={1e3 * run['total'] / nd:.2f} split: "
+              f"draft_prep_s={tm['host_prep_s']:.3f} rotor_s="
+              f"{tm['aero_first_s'] + tm['aero_second_s']:.3f} mooring_s="
+              f"{tm['mooring_s']:.3f} dynamics_s={tm['dynamics_first_s']:.3f}"
+              f" overlap_saved_s={tm['overlap_saved_s']:.3f} chunks="
+              f"{tm['overlap_chunks']} | launches gj_solve="
+              f"{run['launches']['gj_solve']} fused_block="
+              f"{run['launches']['fused_block']} rungs={st['rungs']} "
+              f"padding_share={pad:.4f} | rotor guided_lanes="
+              f"{tel['guided_lanes']} direct_fallback_lanes="
+              f"{tel['direct_fallback_lanes']} sample_lanes="
+              f"{tel['bracketed_sample_lanes']} | non_converged="
+              f"{int((~res['converged']).sum())} retried="
+              f"{int(res['retried'].sum())} | peak_device_GB="
+              f"{run['peak_gb']:.3f}", flush=True)
+    print(f"phase headline sweep checks: rows {list(CHECK_ROWS)} within "
+          f"raft_tpu's bars of the direct Model; fused vs waterfall within "
+          f"1e-8; kernels at the sweep rung: gj_solve {checks['gj_solve'][0]}"
+          f" systems bit_identical=True, fused_block "
+          f"{checks['fused_block'][0]} lanes x cluster {G} CTAs max_abs_err="
+          f"{checks['fused_block'][1]:.3e}; cold draft prep 16 drafts: "
+          f"1_thread_s={prep_s[1]:.3f} 8_threads_s={prep_s[8]:.3f}; "
+          f"raft_tpu JAX-on-CPU VolturnUS-S figure for orientation only: "
+          f"{RAFT_TPU_CPU_MS_PER_DESIGN_VOLTURNUS} ms/design", flush=True)
+    guided_rotor_check(rt, base, card)
+    return {mode: run["launches"] for (mode, ov_), run in runs.items()
+            if ov_ == "auto"}
+
+
+def guided_rotor_check(rt, base, card):
+    """The guided rotor's guards at the headline's scale: 256 designs x
+    the six wind cases.  Cases 1, 3 and 5 take mean pitches spread as on
+    bench_sweep.py's own grid of this semi (up to 1.9 rad: the warm start
+    must fall back to the direct solve), cases 2, 4 and 6 pitches within
+    5 degrees (guided); every lane against the direct evaluation, the
+    fallback lanes to 1e-12 and the guided ones to the CPU test's bars
+    (1e-10 on the loads, 1e-9 on the derivatives)."""
+    import raft_tpu_torch.sweep_fused as sf
+    from raft_tpu_torch.io.schema import cases_as_dicts
+    from raft_tpu_torch.utils.placement import host_threads
+
+    m = rt.Model(base)
+    cases = cases_as_dicts(base)
+    wind = m._case_arrays(cases)[4]
+    widx = np.where(wind > 0.0)[0]
+    U = wind[widx]
+    yaw = np.array([float(cases[i].get("yaw_misalign", 0.0))
+                    for i in widx])
+    nd, nwind = len(DRAFTS) * len(BALLASTS), len(widx)
+    rng = np.random.default_rng(17)
+    pitch = rng.uniform(-0.02, 0.08, (nd, nwind))
+    wide = np.arange(0, nwind, 2)
+    pitch[:, wide] = rng.uniform(0.0, 1.9, (nd, len(wide)))
+    tel = sf._blank_rotor_telemetry()
+    with host_threads():
+        t0 = time.perf_counter()
+        v_g, J_g = sf._guided_rotor_eval(m.rotor, U, yaw, pitch, tel)
+        t_guided = time.perf_counter() - t0
+        v_d, J_d = m.rotor.run_bem_batch(
+            np.broadcast_to(U[None], (nd, nwind)).ravel(), pitch.ravel(),
+            np.broadcast_to(yaw[None], (nd, nwind)).ravel())
+    v_d, J_d = v_d.reshape(nd, nwind, 10), J_d.reshape(nd, nwind, 10, 3)
+    if tel["direct_fallback_lanes"] != nd * len(wide) \
+            or tel["guided_lanes"] != nd * (nwind - len(wide)):
+        raise AssertionError(f"guided rotor lane accounting: {tel}")
+    errs = []
+    for j in range(nwind):
+        sv = np.abs(v_d[:, j]).max(axis=0) + 1e-30
+        sj = np.abs(J_d[:, j]).max(axis=0) + 1e-30
+        ev = float((np.abs(v_g[:, j] - v_d[:, j]) / sv).max())
+        ej = float((np.abs(J_g[:, j] - J_d[:, j]) / sj).max())
+        bars = (1e-12, 1e-12) if j in wide else (1e-10, 1e-9)
+        if not (ev <= bars[0] and ej <= bars[1]):
+            raise AssertionError(f"guided rotor case {j}: {ev}, {ej}")
+        errs.append(max(ev, ej))
+    print(f"phase headline sweep guided rotor: {card} lanes={nd * nwind} "
+          f"guided_lanes={tel['guided_lanes']} direct_fallback_lanes="
+          f"{tel['direct_fallback_lanes']} fallback_cases="
+          f"{tel['fallback_cases']} max_rel_err_vs_direct="
+          f"{max(errs):.3e} guided_eval_s={t_guided:.3f}", flush=True)
+
+
+def _sweep_point(design, point):
+    """tests/test_sweep.py's point: outer-column diameter and draft."""
+    for mem in design["platform"]["members"]:
+        if mem["name"] == "outer":
+            mem["d"] = [point["d_col"]] * len(np.atleast_1d(mem["d"]))
+        mem["rA"][2] *= point["draft_scale"]
+        if mem["rB"][2] < 0:
+            mem["rB"][2] *= point["draft_scale"]
+    return design
+
+
+def general_sweeps_phase(rt, card):
+    """Phase 18: run_design_sweep on 16 bridled semis (main leg 750-780
+    m) with the density trim, held against the direct Model; run_sweep on
+    the demo semi's 6-point grid into a checkpoint directory and again
+    from the checkpoints, bit-identical."""
+    import tempfile
+
+    from raft_tpu_torch.kernels import fused_block as fk
+    from raft_tpu_torch.kernels import gj_solve as gk
+    from raft_tpu_torch.sweep import grid_points, run_sweep
+    from raft_tpu_torch.sweep_fused import run_design_sweep
+
+    lengths = np.linspace(750.0, 780.0, 16)
+    designs = [rt.designs.demo_semi_bridled(12, (0.00625, 0.8), L)
+               for L in lengths]
+    gk.launches = fk.launches = 0
+    t0 = time.perf_counter()
+    res = run_design_sweep(designs, return_xi=True, verbose=False,
+                           trim_ballast_density=True)
+    t_design = time.perf_counter() - t0
+    launches = dict(gj_solve=gk.launches, fused_block=fk.launches)
+    if not (res["moor_resid"] < 1e-5).all():
+        raise AssertionError("bridle junction residual >= 1e-5 in the "
+                             "design sweep")
+    models = [rt.Model(d) for d in designs]
+    for i, m in enumerate(models):
+        delta = m.adjust_ballast_density()
+        if abs(res["delta_rho"][i] - delta) > 1e-6 * abs(delta):
+            raise AssertionError(f"design {i}: delta_rho "
+                                 f"{res['delta_rho'][i]} vs {delta}")
+    for i in (0, 8, 15):
+        m = models[i]
+        m.analyze_unloaded()
+        args, aux = m.prepare_case_inputs(verbose=False)
+        m.analyze_cases()
+        np.testing.assert_allclose(res["Xi0"][i], aux["Xi0"], rtol=1e-8,
+                                   atol=1e-10)
+        np.testing.assert_allclose(res["T_moor"][i], aux["T_moor"],
+                                   rtol=1e-8)
+        np.testing.assert_allclose(np.abs(res["Xi"][i]), np.abs(m.Xi),
+                                   rtol=2e-5, atol=1e-7)
+    axes = {"d_col": [9.0, 10.0, 11.0], "draft_scale": [1.0, 1.1]}
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        s1 = run_sweep(rt.designs.demo_semi(n_cases=2), grid_points(axes),
+                       _sweep_point, out_dir=out_dir, verbose=False)
+        t_sweep = time.perf_counter() - t0
+        s2 = run_sweep(rt.designs.demo_semi(n_cases=2), grid_points(axes),
+                       _sweep_point, out_dir=out_dir, verbose=False)
+    for key in ("Xi", "mass", "iters", "converged", "residual", "cond"):
+        if not np.array_equal(s1[key], s2[key]):
+            raise AssertionError(f"run_sweep restart differs in {key}")
+    if not s1["converged"].all():
+        raise AssertionError("run_sweep points did not converge")
+    tm = res["timing"]
+    print(f"phase general sweeps: {card} design_sweep bridled x16 trimmed "
+          f"total_s={t_design:.3f} (prep {tm['host_prep_s']:.3f}, mooring "
+          f"{tm['mooring_s']:.3f}, dynamics {tm['dynamics_first_s']:.3f}) "
+          f"delta_rho={np.round(res['delta_rho'][[0, 15]], 3).tolist()} "
+          f"gj_launches={launches['gj_solve']} moor_resid_max="
+          f"{res['moor_resid'].max():.3e} | run_sweep 6 points total_s="
+          f"{t_sweep:.3f} restart_bit_identical=True", flush=True)
+    return launches
+
+
 # ------------------------------------------------------ BEM kernels
 
 def tile_inv_phase(bg, dtype, tol):
@@ -985,6 +1446,10 @@ def main():
     megabatch_phase(rt, legacy, args)
     mixed_precision_phase(rt, Timers, legacy)
     l_aero = aero_phase(rt, Timers)
+    l_bridled = bridled_phase(rt, Timers)
+    ballast_phase(rt)
+    l_sweep = headline_sweep_phase(rt, card)
+    l_design = general_sweeps_phase(rt, card)
 
     ti32 = tile_inv_phase(bg, torch.float32, 1e-5)
     tile_inv_phase(bg, torch.float64, 1e-12)
@@ -1000,12 +1465,18 @@ def main():
              launches=l_leg["gj_solve"],
              launches_waterfall=l_wf["gj_solve"],
              launches_fused=l_fu["gj_solve"],
-             launches_aero=l_aero["legacy"]["gj_solve"], **g64),
+             launches_aero=l_aero["legacy"]["gj_solve"],
+             launches_bridled=l_bridled["legacy"]["gj_solve"],
+             launches_sweep_waterfall=l_sweep["waterfall"]["gj_solve"],
+             launches_sweep_fused=l_sweep["fused"]["gj_solve"],
+             launches_design_sweep=l_design["gj_solve"], **g64),
         dict(name="fused_block", route="cuda",
              source="raft_tpu_torch/csrc/fused_block.cu",
              replaces="raft_tpu/pallas_kernels.py:428",
              launches=l_fu["fused_block"],
-             launches_aero=l_aero["fused"]["fused_block"], **f64),
+             launches_aero=l_aero["fused"]["fused_block"],
+             launches_bridled=l_bridled["fused"]["fused_block"],
+             launches_sweep_fused=l_sweep["fused"]["fused_block"], **f64),
         dict(name="tile_inv", route="cuda",
              source="raft_tpu_torch/csrc/tile_inv.cu",
              replaces="raft_tpu/pallas_kernels.py:208",

@@ -30,9 +30,13 @@ rows, the [nw] aero-servo terms) enter the device path through the Model's
    and its quirks (ki_tau assigned from kp_tau, raft_rotor.py:375; the
    mean-load moment ordering [T, Y, Z, My, Q, Mz], raft_rotor.py:350-351).
 
-The guided ``phi0`` path and the host-mesh sharding of
-:meth:`Rotor.run_bem_batch` serve the design sweep only; they raise
-``NotImplementedError`` (ROADMAP.md, queue 1 step 8).
+ - The guided path (``phi0``, the design sweeps' second pass) skips the
+   bracketing: three Newton steps clipped to +-0.05 rad from the given
+   guesses, then the implicit rule dphi/dx = -R_x / R_phi at the root
+   reached, as ``lax.custom_root`` linearizes it in the JAX package.
+
+The host-mesh sharding of :meth:`Rotor.run_bem_batch` (``n_devices`` > 1)
+raises ``NotImplementedError`` (ROADMAP.md, queue 1 step 8).
 """
 
 import numpy as np
@@ -483,6 +487,20 @@ def _newton_step(phi, resid):
     return phi - r.v / r.full_t()[0]
 
 
+def _solve_phi_guided(phi0, resid, n_newton):
+    """Inflow angles from near-root guesses ``phi0``: the guesses kept
+    off the phi = 0 branch discontinuity, then ``n_newton`` Newton steps
+    clipped to +-0.05 rad (an interpolated guess can sit a polar kink
+    away from the root, where an undamped step may overshoot)."""
+    eps = 1e-6
+    phi = torch.where(phi0 >= 0.0, torch.clamp(phi0, min=eps),
+                      torch.clamp(phi0, max=-eps))
+    for _ in range(n_newton):
+        r = resid(_Dual(phi, torch.ones((1,) + phi.shape, dtype=phi.dtype)))
+        phi = phi - torch.clamp(r.v / r.full_t()[0], -0.05, 0.05)
+    return phi
+
+
 def _solve_phi(theta, cl_tab, cd_tab, aoa_grid, sigma_p, flow,
                n_bisect=30, n_newton=2):
     """Inflow angles phi solving the BEM residual of every section at once
@@ -554,8 +572,9 @@ def rotor_evaluate(Uinf, Omega, pitch, geom, polars, env, nSector=4,
         lane tensors), hubHt, shearExp
     polars : (aoa_grid_deg, cl[n_span,naoa], cd, cm)
     env : dict with rho, mu
-    phi0 : the guided path's inflow-angle guesses (raises
-        ``NotImplementedError``)
+    phi0 : optional inflow-angle guesses [..., nSector, n_span]: the
+        guided path (no bracketing or bisection; ``n_newton`` clipped
+        Newton steps, then the implicit derivative at the root)
     n_newton : Newton polish steps
     derivs : also return ``J [..., 10, 3]``, the derivatives of the
         outputs (T, Q, P, CP, CT, CQ, Y, Z, My, Mz) in (Uinf, Omega, pitch)
@@ -566,8 +585,6 @@ def rotor_evaluate(Uinf, Omega, pitch, geom, polars, env, nSector=4,
     at them (``resid``), the stacked outputs ``vals [..., 10]`` and with
     ``derivs`` their derivatives ``J``.
     """
-    if phi0 is not None:
-        raise _not_ported("the guided rotor path (phi0)")
     aoa_grid, cl_tab, cd_tab, _ = polars
     f64 = lambda t: torch.as_tensor(t, dtype=_F64)  # noqa: E731
     Uinf, Omega, pitch, tilt, yaw = torch.broadcast_tensors(
@@ -582,21 +599,30 @@ def rotor_evaluate(Uinf, Omega, pitch, geom, polars, env, nSector=4,
     tabs = (cl_tab, cd_tab, aoa_grid, sigma_p)
 
     theta, Vx, Vy = _sections(Uinf, Omega, pitch, tilt, yaw, geom, azimuths)
-    phi = _solve_phi(theta, cl_tab, cd_tab, aoa_grid, sigma_p,
-                     _Inflow(B, r, Rhub, Rtip, Vx, Vy),
-                     n_newton=n_newton - 1 if derivs and n_newton else
-                     n_newton)
+    flow = _Inflow(B, r, Rhub, Rtip, Vx, Vy)
+    guided = phi0 is not None
+    if guided:
+        phi = _solve_phi_guided(
+            torch.as_tensor(phi0, dtype=_F64),
+            lambda p: _phi_resid(p, theta, *tabs, flow), n_newton)
+    else:
+        phi = _solve_phi(theta, cl_tab, cd_tab, aoa_grid, sigma_p, flow,
+                         n_newton=n_newton - 1 if derivs and n_newton else
+                         n_newton)
 
     dphi = torch.zeros((3,) + phi.shape, dtype=_F64)
-    if derivs and n_newton:
-        # the last Newton step: R_phi and R_x from one pass in 4 directions
-        # (phi, U, Omega, pitch); dphi/dx = -R_x / R_phi there
+    if derivs and (n_newton or guided):
+        # R_phi and R_x from one pass in 4 directions (phi, U, Omega,
+        # pitch); dphi/dx = -R_x / R_phi.  The bracketed path takes its
+        # last Newton step from the same pass; the guided path
+        # linearizes at the root it reached
         th, vx, vy = _sections(_seed(Uinf, 4, 1), _seed(Omega, 4, 2),
                                _seed(pitch, 4, 3), tilt, yaw, geom, azimuths)
         res = _phi_resid(_seed(phi, 4, 0), th, *tabs,
                          _Inflow(B, r, Rhub, Rtip, vx, vy))
         dres = res.full_t()
-        phi = phi - res.v / dres[0]
+        if not guided:
+            phi = phi - res.v / dres[0]
         dphi = -dres[1:] / dres[0]
 
     rfull = torch.cat([f64([Rhub]), r, f64([Rtip])])
@@ -835,26 +861,31 @@ class Rotor:
         return loads, derivs
 
     def run_bem_batch(self, Uhub, ptfm_pitch, yaw_misalign=None,
-                      phi0=None, n_devices=None, derivs=True):
+                      phi0=None, return_phi=False, return_resid=False,
+                      n_devices=None, derivs=True):
         """Batched steady loads + SI derivatives over a leading lane axis:
         one evaluation of every lane's sections at once (the Model's wind
         cases, or a sweep's design x case points).
 
         Uhub, ptfm_pitch, yaw_misalign : broadcastable arrays [nt]
-        phi0 : the guided path's guesses (raises ``NotImplementedError``)
+        phi0 : optional inflow-angle guesses [nt, nSector, n_span]: the
+            guided path (three clipped Newton steps from them, no
+            bracketing; :func:`rotor_evaluate`)
+        return_phi : also return the solved phi [nt, nSector, n_span]
+        return_resid : also return each lane's worst |Ning residual| at
+            the returned roots [nt] (the guided path's; None for the
+            bracketed path)
         n_devices : more than one host device raises
             ``NotImplementedError``
         derivs : False skips the derivatives (J is then None); the loads
             are the same bits either way
-        Returns (vals [nt, 10], J [nt, 10, 3]) as NumPy float64: vals =
-        (T, Q, P, CP, CT, CQ, Y, Z, My, Mz), J their derivatives in (U,
-        Omega, pitch), SI.
+        Returns (vals [nt, 10], J [nt, 10, 3][, phi][, resid]) as NumPy
+        float64: vals = (T, Q, P, CP, CT, CQ, Y, Z, My, Mz), J their
+        derivatives in (U, Omega, pitch), SI.
         """
-        if phi0 is not None:
-            raise _not_ported("the guided rotor path (phi0)")
         if n_devices is not None and int(n_devices) > 1:
             raise _not_ported("host-mesh sharding of the rotor lanes")
-        Uhub = np.atleast_1d(np.asarray(Uhub, np.float64))
+        Uhub = np.array(Uhub, np.float64, ndmin=1)
         ptfm_pitch = np.broadcast_to(np.asarray(ptfm_pitch, np.float64),
                                      Uhub.shape)
         yaw = np.zeros_like(Uhub) if yaw_misalign is None else \
@@ -863,11 +894,20 @@ class Rotor:
         tilt = np.deg2rad(self.shaft_tilt) + ptfm_pitch
         geom = dict(self.geom, tilt=torch.as_tensor(tilt),
                     yaw=torch.as_tensor(np.deg2rad(yaw)))
+        guided = phi0 is not None
         out = rotor_evaluate(torch.as_tensor(Uhub),
                              torch.as_tensor(Omega_rpm * np.pi / 30.0),
                              torch.as_tensor(np.deg2rad(pitch_deg)), geom,
-                             self.polars, self.env, derivs=derivs)
-        return out["vals"].numpy(), out["J"].numpy() if derivs else None
+                             self.polars, self.env,
+                             phi0=None if not guided else torch.as_tensor(
+                                 np.asarray(phi0, np.float64)),
+                             n_newton=3 if guided else 2, derivs=derivs)
+        res = [out["vals"].numpy(), out["J"].numpy() if derivs else None]
+        if return_phi:
+            res.append(out["phi"].numpy())
+        if return_resid:
+            res.append(out["resid"].numpy() if guided else None)
+        return tuple(res)
 
     # ---------------------------------------------------- aero-servo terms
 

@@ -12,7 +12,8 @@ choosing); `demo_semi()` is a small three-column semisubmersible exercising
 heading replication, rectangular pontoons, and multi-section ballast;
 `flagship()` is the benchmark's main-path problem built on `demo_semi()`;
 `demo_rotor_turbine()` is a synthetic rotor configuration and
-`demo_semi_aero()` attaches it to `demo_semi()` with operating wind.
+`demo_semi_aero()` attaches it to `demo_semi()` with operating wind;
+`demo_semi_bridled()` replaces one of its lines by a crow's-foot bridle.
 
 The port's own copy of ``raft_tpu/designs.py``.
 """
@@ -295,4 +296,52 @@ def flagship(min_freq, max_freq, n_cases):
         r["wave_period"] = 8.0 + 0.25 * i
         rows.append([r[k] for k in keys])
     design["cases"]["data"] = rows
+    return design
+
+
+def demo_semi_bridled(n_cases=2, nw_settings=(0.02, 0.6), main_length=760.0):
+    """:func:`demo_semi` with line 1 replaced by a crow's-foot bridle: an
+    anchor leg of ``main_length`` m to a free 800 kg junction, then two
+    150 m vessel legs to fairleads 2 m either side of the column's; lines
+    2 and 3 stay plain, so the system carries trunk and bridle tension
+    channels.  Aero off, ``n_cases`` JONSWAP cases of wave height 3 + i m
+    and period 8 + i s.  At ``demo_semi_bridled(12, (0.00625, 0.8))`` it
+    is 128 frequencies x 12 cases."""
+    design = demo_semi()
+    min_freq, max_freq = nw_settings
+    design["settings"] = {"min_freq": min_freq, "max_freq": max_freq,
+                          "XiStart": 0.1, "nIter": 15}
+    design["turbine"]["aeroServoMod"] = 0
+    keys = design["cases"]["keys"]
+    row = dict(zip(keys, design["cases"]["data"][0]))
+    rows = []
+    for i in range(n_cases):
+        r = dict(row)
+        r["wind_speed"] = 0.0
+        r["wave_spectrum"] = "JONSWAP"
+        r["wave_height"] = 3.0 + i
+        r["wave_period"] = 8.0 + i
+        rows.append([r[k] for k in keys])
+    design["cases"]["data"] = rows
+    moor = design["mooring"]
+    th = np.deg2rad(60.0)
+    c, s = np.cos(th), np.sin(th)
+    moor["points"] = [p for p in moor["points"] if p["name"] != "fair1"]
+    moor["points"] += [
+        {"name": "junc1", "type": "free", "mass": 800.0,
+         "location": [150.0 * c, 150.0 * s, -100.0]},
+        {"name": "fairA1", "type": "vessel",
+         "location": [5.2 * c - 2.0 * s, 5.2 * s + 2.0 * c, -14.0]},
+        {"name": "fairB1", "type": "vessel",
+         "location": [5.2 * c + 2.0 * s, 5.2 * s - 2.0 * c, -14.0]},
+    ]
+    moor["lines"] = [ln for ln in moor["lines"] if ln["name"] != "line1"]
+    moor["lines"] += [
+        {"name": "main1", "endA": "anchor1", "endB": "junc1",
+         "type": "chain", "length": float(main_length)},
+        {"name": "brA1", "endA": "junc1", "endB": "fairA1",
+         "type": "chain", "length": 150.0},
+        {"name": "brB1", "endA": "junc1", "endB": "fairB1",
+         "type": "chain", "length": 150.0},
+    ]
     return design

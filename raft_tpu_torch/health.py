@@ -9,6 +9,7 @@ shape.  A non-finite iterate freezes its lane at its last finite state
 (the NaN quarantine) instead of poisoning the batch.
 """
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -49,6 +50,21 @@ class SolveReport(NamedTuple):
     recovery_tier: object
     residual: object
     cond: object
+
+
+@dataclasses.dataclass
+class FailedPoint:
+    """A sweep design point quarantined on the host: its preparation
+    (geometry, statics, mooring equilibrium) raised, so its batch slot
+    was masked and its result rows are NaN."""
+
+    index: int          # position in the sweep's ``points`` list
+    point: dict         # the parameter dict of the failed design point
+    error: str          # "ExceptionType: message" of what prep raised
+
+    def as_dict(self):
+        return {"index": self.index, "point": self.point,
+                "error": self.error}
 
 
 def report_to_numpy(rep):

@@ -53,9 +53,14 @@ from raft_tpu_torch.mooring import (
     coupled_stiffness,
     line_forces,
     parse_mooring,
-    BRIDLES_NOT_PORTED,
+    warn_bridle_residual,
 )
-from raft_tpu_torch.statics import compute_statics, member_inertia
+from raft_tpu_torch.statics import (
+    _vcv_circ,
+    _vcv_rect,
+    compute_statics,
+    member_inertia,
+)
 from raft_tpu_torch.utils.frames import (
     transform_force,
     translate_matrix_3to6,
@@ -221,9 +226,8 @@ class Model:
 
         self.ms = parse_mooring(design["mooring"], rho_water=self.rho_water,
                                 g=self.g)
-        if self.ms.bridles is not None:
-            raise NotImplementedError(BRIDLES_NOT_PORTED)
         self._moor_arrays = self.ms.arrays()
+        self._bridle_arrays = self.ms.bridle_arrays()
         self.yawstiff = design["platform"].get("yaw_stiffness", 0.0)
 
         turb = design["turbine"]
@@ -255,15 +259,22 @@ class Model:
     # statics / unloaded analysis
     # ------------------------------------------------------------------
 
-    def analyze_unloaded(self, ballast=0):
+    def analyze_unloaded(self, ballast=0, heave_tol=1.0):
         """Unloaded-state properties: statics, undisplaced mooring
         stiffness, equilibrium offsets (reference
-        raft/raft_model.py:109-146)."""
-        if ballast:
-            raise _not_ported("ballast adjustment", 5)
+        raft/raft_model.py:109-146).  ``ballast=1`` trims the members'
+        fill levels (:meth:`adjust_ballast`, to ``heave_tol`` m of
+        residual heave), ``ballast=2`` their fill densities
+        (:meth:`adjust_ballast_density`), before the statics."""
         z6 = torch.zeros(6, dtype=HOST_DTYPE)
-        self.C_moor0 = coupled_stiffness(z6, *self._moor_arrays).numpy()
-        self.F_moor0 = line_forces(z6, *self._moor_arrays)[0].numpy()
+        with host_threads():
+            self.C_moor0 = coupled_stiffness(
+                z6, *self._moor_arrays, self._bridle_arrays).numpy()
+            self.F_moor0 = self._unloaded_forces()
+        if ballast == 1:
+            self.adjust_ballast(heave_tol=heave_tol)
+        elif ballast == 2:
+            self.adjust_ballast_density()
 
         with timer("statics"):
             self.statics = compute_statics(
@@ -277,6 +288,13 @@ class Model:
         self.Xi0_unloaded = Xi0
         self.results["properties"]["offset_unloaded"] = Xi0
         return self.results
+
+    def _unloaded_forces(self):
+        """The mooring's 6-DOF reaction at the undisplaced pose."""
+        z6 = torch.zeros(6, dtype=HOST_DTYPE)
+        with host_threads():
+            return line_forces(z6, *self._moor_arrays,
+                               self._bridle_arrays)[0].numpy()
 
     def import_bem(self, file1, file3=None):
         """Load potential-flow radiation/diffraction coefficients from
@@ -347,8 +365,8 @@ class Model:
         out = case_mooring(
             _host(np.atleast_2d(F_aero0)), float(st.mass), float(st.V),
             _host(st.rCG_TOT), _host([0.0, 0.0, st.zMeta]), float(st.AWP),
-            *self._moor_arrays, rho=self.rho_water, g=self.g,
-            yawstiff=self.yawstiff,
+            *self._moor_arrays, bridles=self._bridle_arrays,
+            rho=self.rho_water, g=self.g, yawstiff=self.yawstiff,
         )
         return tuple(o.detach().numpy() for o in out)
 
@@ -428,6 +446,13 @@ class Model:
             wind[i] = float(c.get("wind_speed", 0.0))
         return spec, height, period, beta, wind
 
+    def _zeta(self, spec, height, period):
+        """Wave amplitude spectra [ncase, nw] of the cases' spectrum
+        codes, heights and periods."""
+        return make_wave_spectrum(
+            _host(self.w)[None, :], torch.as_tensor(spec)[:, None],
+            _host(height)[:, None], _host(period)[:, None]).numpy()
+
     def _rotor_lanes(self, cases, wind, ptfm_pitch, derivs):
         """One batched rotor evaluation of every wind case at platform
         pitch ``ptfm_pitch`` [ncase]: (the cases' indices, vals, J), as
@@ -499,16 +524,15 @@ class Model:
         st = self.statics
 
         spec, height, period, beta, wind = self._case_arrays(cases)
-        zeta = make_wave_spectrum(
-            _host(self.w)[None, :], torch.as_tensor(spec)[:, None],
-            _host(height)[:, None], _host(period)[:, None]).numpy()
+        zeta = self._zeta(spec, height, period)
 
         # ---- per-case aero means at zero platform pitch (reference
         # solveStatics first pass, raft_model.py:504-513) ----
         F_aero0 = self.aero_case_means(cases, wind)
         with timer("mooring_offsets"):
-            Xi0, C_moor, _, T_moor, J_moor, _ = self._mooring_and_offsets(
-                F_aero0)
+            Xi0, C_moor, _, T_moor, J_moor, moor_resid = \
+                self._mooring_and_offsets(F_aero0)
+        warn_bridle_residual(moor_resid, label="case")
         if verbose:
             for i in range(ncase):
                 print(
@@ -580,6 +604,7 @@ class Model:
         aux = dict(
             cases=cases, ncase=ncase, zeta=zeta, Xi0=Xi0,
             T_moor=T_moor, J_moor=J_moor, F_aero0=F_aero0,
+            moor_resid=moor_resid,
         )
         return args, aux
 
@@ -635,6 +660,9 @@ class Model:
         Xi0 = aux["Xi0"]
         T_moor = aux["T_moor"]
         J_moor = aux["J_moor"]
+        # the worst bridle-junction residual per case (0 without bridles)
+        self.moor_resid = aux["moor_resid"]
+        # tension channels: trunk lines and bridle legs, at both ends
         nLines = T_moor.shape[-1] // 2
 
         # ---- the batched device solve ----
@@ -893,6 +921,169 @@ class Model:
         return self.results
 
     # ------------------------------------------------------------------
+    # ballast adjustment
+    # ------------------------------------------------------------------
+
+    def adjust_ballast(self, heave_tol=1.0):
+        """Adjust member ballast fill levels to trim the unloaded heave
+        within ``heave_tol`` m (reference raft/raft_model.py:827-979
+        adjustBallast), as the JAX package does: each candidate section's
+        fill length is the exact inversion of the frustum fill volume
+        (60 bisection halvings, rounded to 0.01 m) instead of the
+        reference's 0.01 m crawl; the member and section order and the
+        copies over a member's headings follow the reference.  Returns
+        the residual heave imbalance (m)."""
+        F_moor0 = self._unloaded_forces()
+
+        def heave_imbalance():
+            st = compute_statics(
+                self.members, self.design["turbine"], self.rho_water, self.g
+            )
+            sumFz = -st.mass * self.g + st.V * self.rho_water * self.g \
+                + F_moor0[2]
+            return sumFz / (self.rho_water * self.g * st.AWP), st
+
+        heave, st = heave_imbalance()
+        i = 0
+        while i < len(self.members) and abs(heave) > heave_tol:
+            mem = self.members[i]
+            headings = np.atleast_1d(mem.headings)
+            n_copies = len(headings)
+            if mem.heading != headings[0]:
+                i += 1
+                continue
+            rho_fills = np.atleast_1d(mem.rho_fill).astype(float)
+            l_fills = np.atleast_1d(np.asarray(mem.l_fill, float)
+                                    * np.ones_like(rho_fills))
+            for j, rho_b in enumerate(rho_fills):
+                if rho_b <= 0:
+                    continue
+                dmass = (st.V * self.rho_water * self.g + F_moor0[2]) \
+                    / self.g - st.mass
+                mdvol = dmass / rho_b / n_copies
+                # the l_fill giving this section's current volume + mdvol
+                if mem.circular:
+                    dAi = mem.d[j] - 2 * mem.t[j]
+                    dBi = mem.d[j + 1] - 2 * mem.t[j + 1]
+                else:
+                    dAi = mem.sl[j] - 2 * mem.t[j]
+                    dBi = mem.sl[j + 1] - 2 * mem.t[j + 1]
+                ln = mem.l
+                vcv = _vcv_circ if mem.circular else _vcv_rect
+
+                def vol(lf):
+                    return vcv(dAi, (dBi - dAi) * (lf / ln) + dAi, lf)[0]
+
+                target = vol(l_fills[j]) + mdvol
+                lo, hi = 0.0, ln
+                if target <= 0:
+                    lf = 0.0
+                elif target >= vol(ln):
+                    lf = ln
+                else:
+                    for _ in range(60):
+                        mid = 0.5 * (lo + hi)
+                        if vol(mid) < target:
+                            lo = mid
+                        else:
+                            hi = mid
+                    lf = round(0.5 * (lo + hi), 2)
+                for kcopy in range(n_copies):
+                    other = self.members[i + kcopy]
+                    if np.isscalar(other.l_fill):
+                        other.l_fill = lf
+                    else:
+                        other.l_fill = np.asarray(other.l_fill, float)
+                        other.l_fill[j] = lf
+                heave, st = heave_imbalance()
+                if abs(heave) < heave_tol:
+                    break
+            i += 1
+        print(f"Ballast adjustment done; residual heave imbalance "
+              f"{heave:.3f} m")
+        return heave
+
+    def adjust_ballast_density(self):
+        """Uniformly adjust ballast densities to zero the unloaded heave
+        (reference raft/raft_model.py:982-1037).  Returns the density
+        change (kg/m^3)."""
+        F_moor0 = self._unloaded_forces()
+        for mem in self.members:
+            if np.isscalar(mem.l_fill):
+                if mem.rho_fill == 0.0:
+                    mem.l_fill = 0.0
+            else:
+                mem.l_fill = np.where(
+                    np.atleast_1d(mem.rho_fill) == 0.0, 0.0, mem.l_fill)
+
+        st = compute_statics(
+            self.members, self.design["turbine"], self.rho_water, self.g
+        )
+        sumFz = -st.mass * self.g + st.V * self.rho_water * self.g \
+            + F_moor0[2]
+        ballast_volume = sum(sum(v) for v in st.member_vfill)
+        if ballast_volume <= 0:
+            raise RuntimeError(
+                "adjust_ballast_density needs nonzero ballast volume")
+        delta_rho = sumFz / self.g / ballast_volume
+        print(f"Adjusting ballast density by {delta_rho:.3f} kg/m^3")
+        for mem in self.members:
+            if np.isscalar(mem.l_fill):
+                if mem.l_fill > 0.0:
+                    mem.rho_fill = mem.rho_fill + delta_rho
+            else:
+                lf = np.atleast_1d(mem.l_fill)
+                rf = np.atleast_1d(np.asarray(mem.rho_fill, float)
+                                   * np.ones_like(lf))
+                mem.rho_fill = np.where(lf > 0.0, rf + delta_rho, rf)
+        return delta_rho
+
+    def adjust_wisdem(self, old_wisdem_file, new_wisdem_file):
+        """Write a copy of a WISDEM geometry YAML with each floating
+        member's ballast volume taken from this model's trimmed fill levels
+        (reference raft/raft_model.py:1040-1090 adjustWISDEM; the WEIS
+        ballast hand-off after :meth:`adjust_ballast`).
+
+        Members are matched like the reference: the same bottom-joint z
+        (to 5 printed characters) and the same first outer diameter; only
+        the first ballast entry's volume is updated, assuming a constant
+        diameter over the fill (the reference's stated assumption).
+        Rectangular members have no diameter and match nothing (the JAX
+        package raises TypeError on reaching one)."""
+        import yaml
+
+        with open(old_wisdem_file, "r", encoding="utf-8") as f:
+            wisdem_design = yaml.safe_load(f)
+
+        platform = wisdem_design["components"]["floating_platform"]
+        joints = {j["name"]: j for j in platform["joints"]}
+        for wmem in platform["members"]:
+            if "ballasts" not in wmem.get("internal_structure", {}):
+                continue
+            joint = joints.get(wmem.get("joint1"))
+            if joint is None:
+                continue
+            wd0 = float(np.atleast_1d(
+                wmem["outer_shape"]["outer_diameter"]["values"])[0])
+            for mem in self.members:
+                if not mem.circular:
+                    continue
+                d0 = float(np.atleast_1d(mem.d)[0])
+                if (str(joint["location"][2])[0:5]
+                        == str(float(mem.rA[2]))[0:5] and wd0 == d0):
+                    t0 = float(np.atleast_1d(mem.t)[0])
+                    area = np.pi * ((d0 - 2 * t0) / 2) ** 2
+                    lf0 = float(np.atleast_1d(mem.l_fill)[0])
+                    wmem["internal_structure"]["ballasts"][0]["volume"] = (
+                        float(area * lf0))
+                    break
+
+        with open(new_wisdem_file, "w", encoding="utf-8") as f:
+            yaml.safe_dump(wisdem_design, f, default_flow_style=None,
+                           sort_keys=False, allow_unicode=False)
+        return wisdem_design
+
+    # ------------------------------------------------------------------
     # HAMS/OpenFAST interop
     # ------------------------------------------------------------------
 
@@ -995,6 +1186,9 @@ class Model:
     analyzeCases = analyze_cases
     solveEigen = solve_eigen
     calcOutputs = calc_outputs
+    adjustBallast = adjust_ballast
+    adjustBallastDensity = adjust_ballast_density
+    adjustWISDEM = adjust_wisdem
 
 
 def run_raft(input_file, plot=0, ballast=0, run_native_bem=False, **kwargs):

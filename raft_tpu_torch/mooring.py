@@ -1,5 +1,5 @@
 """Quasi-static catenary mooring system on tensors (the port's
-``raft_tpu/mooring.py``, for systems without bridle junctions).
+``raft_tpu/mooring.py``).
 
 YAML-schema parsing (composite lines through two-line free points,
 clump weights, seabed friction ``cb``), per-line elastic catenary solves
@@ -19,10 +19,21 @@ explicitly by the chain rule, fairlead geometry -> (XF, ZF) -> (HF, VF)
 through :class:`_CatenaryRoot`, a ``torch.autograd.Function`` whose
 ``backward`` is the same implicit solve.
 
-A design with bridle junctions parses, but solving it raises
-``NotImplementedError`` (ROADMAP.md, queue 1 step 5).
+Bridle junctions (free points joining three or more lines) are solved by
+an adaptive Levenberg–Marquardt loop on each junction's 3-DOF force
+balance, from the design's junction position every time, as the JAX
+package does.  The junction's pose derivative is implicit too:
+dp/dr6 = -(d net/dp)^-1 d net/dr6 at the converged point, the 3x3
+Jacobian written out from the legs' catenary tangents; the chain rule
+carries it into the forces, ``C_moor`` and ``J_moor``.  Reverse mode goes
+through :class:`_JunctionRoot`.
+
+The line arrays may carry leading batch axes that broadcast against the
+pose's (the design sweeps pass [designs, 1, lines, ...] with poses
+[designs, cases, 6]).
 """
 
+import types
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,10 +45,6 @@ from raft_tpu_torch.utils.frames import (
     rotation_matrix_derivatives,
     translate_force_3to6,
 )
-
-BRIDLES_NOT_PORTED = (
-    "bridle junctions are not ported yet (ROADMAP.md, queue 1 step 5)")
-
 
 # ---------------- host-side parsing ----------------
 
@@ -78,6 +85,17 @@ class BridleSet:
     def n(self):
         return len(self.Wj)
 
+    def arrays(self):
+        """The bridle tensors for the solver functions, in the order
+        (kind, ends, L, EA, w, Wp, cb, Wj, p0), float64 on the CPU."""
+        return tuple(torch.as_tensor(np.asarray(getattr(self, f),
+                                                np.float64))
+                     for f in BRIDLE_FIELDS)
+
+
+#: the order of :meth:`BridleSet.arrays`
+BRIDLE_FIELDS = ("kind", "ends", "L", "EA", "w", "Wp", "cb", "Wj", "p0")
+
 
 @dataclass
 class MooringSystem:
@@ -112,6 +130,10 @@ class MooringSystem:
         src = (self.anchors, self.rFair, self.L, self.EA, self.w, self.Wp,
                self.cb)
         return tuple(torch.as_tensor(np.asarray(a, np.float64)) for a in src)
+
+    def bridle_arrays(self):
+        """:meth:`BridleSet.arrays` of the bridles, or None."""
+        return None if self.bridles is None else self.bridles.arrays()
 
 
 def parse_mooring(mooring, rho_water=1025.0, g=9.81):
@@ -350,10 +372,14 @@ def _clip_grad(x, lo, hi):
 class _Segments:
     """The profile's constants of segments ``[..., k]`` (computed once per
     catenary solve, not per Newton step); ``cb`` marks the bottom
-    segment, which may touch the seabed, with its friction."""
+    segment, which may touch the seabed, with its friction.  ``ground``
+    (bool, the batch shape) marks the lanes whose bottom segment may
+    touch the seabed at all; the others hang fully suspended (bridle
+    vessel legs).  None: every lane may."""
 
-    def __init__(self, L, EA, w, cb=None):
+    def __init__(self, L, EA, w, cb=None, ground=None):
         self.L, self.EA, self.w = L, EA, w
+        self.ground = ground
         self.wL = w * L
         self.half_wL2 = 0.5 * w * L**2
         self.zero = torch.zeros_like(L)
@@ -416,6 +442,8 @@ def _profile(H, V, g):
     zt_H = (1 / s1 - 1.0) / w
     zt_V = vh / (s1 * w) + V / (EA * w)
     sus = V - g.wL >= 0
+    if g.ground is not None:
+        sus = sus | ~g.ground
     return (torch.where(sus, xs, xt), torch.where(sus, zs, zt),
             tuple(torch.where(sus, a, b)
                   for a, b in zip(ds, (xt_H, xt_V, zt_H, zt_V))))
@@ -425,14 +453,16 @@ class _Lines:
     """Composite lines [..., S] (segments anchor -> fairlead, clump
     weights ``Wp`` at segment tops) prepared for the profile equations:
     the bottom segment may touch down, with friction ``cb``; the upper
-    segments hang suspended."""
+    segments hang suspended; with ``ground`` False a lane's bottom
+    segment hangs suspended too."""
 
-    def __init__(self, L, EA, w, Wp, cb):
+    def __init__(self, L, EA, w, Wp, cb, ground=None):
         c = w * L
         # vertical tension at each segment's top: V minus what hangs above
         self.above_seg = c.sum(-1, keepdim=True) - torch.cumsum(c, -1)
         self.above_pt = Wp.sum(-1, keepdim=True) - torch.cumsum(Wp, -1) + Wp
-        self.bottom = _Segments(L[..., 0], EA[..., 0], w[..., 0], cb)
+        self.bottom = _Segments(L[..., 0], EA[..., 0], w[..., 0], cb,
+                                ground)
         self.upper = None if L.shape[-1] == 1 else _Segments(
             L[..., 1:], EA[..., 1:], w[..., 1:])
 
@@ -493,7 +523,7 @@ def _catenary_guess(XF, ZF, L, EA, w, Wp):
                        dim=-1)
 
 
-def _catenary_newton(XF, ZF, L, EA, w, Wp, cb, iters, tol):
+def _catenary_newton(XF, ZF, L, EA, w, Wp, cb, iters, tol, ground=None):
     """Damped Newton in (log H, log V) from the MoorPy-style guess, per
     lane until the relative residual is below ``tol`` (cap ``iters``),
     with the profile's Jacobian written out; a converged lane keeps its
@@ -501,7 +531,7 @@ def _catenary_newton(XF, ZF, L, EA, w, Wp, cb, iters, tol):
     ``vmap``."""
     scale = torch.maximum(torch.abs(XF), torch.abs(ZF))
     tol = tol + 30 * torch.finfo(XF.dtype).eps
-    lines = _Lines(L, EA, w, Wp, cb)
+    lines = _Lines(L, EA, w, Wp, cb, ground)
     p = _catenary_guess(XF, ZF, L, EA, w, Wp)
     err = torch.full_like(XF, torch.inf)
     for _ in range(iters):
@@ -527,23 +557,26 @@ class _CatenaryRoot(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(XF, ZF, L, EA, w, Wp, cb, iters, tol):
-        return _catenary_newton(XF, ZF, L, EA, w, Wp, cb, iters, tol)
+    def forward(XF, ZF, L, EA, w, Wp, cb, ground, iters, tol):
+        return _catenary_newton(XF, ZF, L, EA, w, Wp, cb, iters, tol,
+                                ground)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(*inputs[:7], output)
+        ctx.ground = inputs[7]
 
     @staticmethod
     def backward(ctx, gp):
         XF, ZF, L, EA, w, Wp, cb, p = ctx.saved_tensors
-        _, J = _catenary_resid_jac(p, XF, ZF, _Lines(L, EA, w, Wp, cb))
+        _, J = _catenary_resid_jac(p, XF, ZF,
+                                   _Lines(L, EA, w, Wp, cb, ctx.ground))
         g = _solve2(J.transpose(-1, -2), gp)
-        return (g[..., 0], g[..., 1]) + (None,) * 7
+        return (g[..., 0], g[..., 1]) + (None,) * 8
 
 
 def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11,
-                   tangents=False):
+                   tangents=False, seabed=True):
     """Fairlead tension components (HF, VF) of (possibly composite) lines
     spanning horizontal distance XF and vertical distance ZF [...].
     ``L``/``EA``/``w``/``Wp`` are [..., S] segment arrays ordered
@@ -556,6 +589,12 @@ def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11,
     [..., 2, 2] (rows HF, VF; columns XF, ZF) by the same implicit rule.
     Fully slack lines (more line than span plus drop) take the
     closed-form vertical hang: H = 0, V = hanging weight.
+
+    ``seabed`` (bool, or a bool tensor broadcasting to the lanes): False
+    hangs a lane fully suspended, its bottom end clear of the seabed
+    (bridle vessel legs; a bottom-end vertical tension below zero, sag
+    below the attachment, is allowed), with no touchdown and no
+    slack-hang closed form.
     """
     L, EA, w = (torch.atleast_1d(t) for t in (L, EA, w))
     Wp = torch.zeros_like(L) if Wp is None else torch.atleast_1d(Wp)
@@ -566,15 +605,18 @@ def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11,
     cb = cb.expand(batch)
     XF_span = XF.expand(batch)
     ZF = ZF.expand(batch)
+    ground = None if seabed is True else torch.as_tensor(seabed).expand(
+        batch)
     L_tot = L.sum(-1)
     # guard XF -> 0 (fairlead directly above the anchor): a tiny span keeps
     # the solve finite; HF then comes out ~0
     XF = torch.maximum(XF_span, 1e-6 * L_tot)
     d = torch.sqrt(XF**2 + ZF**2)
     if tangents:
-        p = _catenary_newton(XF, ZF, L, EA, w, Wp, cb, iters, tol)
+        p = _catenary_newton(XF, ZF, L, EA, w, Wp, cb, iters, tol, ground)
     else:
-        p = _CatenaryRoot.apply(XF, ZF, L, EA, w, Wp, cb, iters, tol)
+        p = _CatenaryRoot.apply(XF, ZF, L, EA, w, Wp, cb, ground, iters,
+                                tol)
     HF, VF = torch.exp(p[..., 0]), torch.exp(p[..., 1])
     # fully-slack regime (L > XF + ZF): a vertical hang of length ZF with
     # the excess on the seabed — H = 0 and V = the hanging weight; the
@@ -587,6 +629,8 @@ def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11,
         L_tot >= (XF + ZF) * (1.0 - 1e-2)) & (
         ~torch.isfinite(HF) | ~torch.isfinite(VF))
     fully_slack = near | bad
+    if ground is not None:
+        fully_slack = fully_slack & ground
     above = L_tot[..., None] - torch.cumsum(L, -1)
     zero = torch.zeros_like(L)
     hang = _clip(ZF[..., None] - above, zero, L)
@@ -598,7 +642,7 @@ def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11,
         return HF_s, VF_s
     # dp/d(XF, ZF) = J_p^{-1} at the converged point, then the chain rule
     # through exp and the XF guard
-    _, J = _catenary_resid_jac(p, XF, ZF, _Lines(L, EA, w, Wp, cb))
+    _, J = _catenary_resid_jac(p, XF, ZF, _Lines(L, EA, w, Wp, cb, ground))
     det = _det2(J)
     Jinv = torch.stack([torch.stack([J[..., 1, 1], -J[..., 0, 1]], -1),
                         torch.stack([-J[..., 1, 0], J[..., 0, 0]], -1)],
@@ -614,12 +658,318 @@ def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11,
                                    dHV)
 
 
+# ---------------- bridle junctions ----------------
+
+def _pose_arms(r6, body_pts):
+    """Points ``body_pts [..., 3]`` of the body frame rotated by pose r6
+    [..., 6] (broadcast as ``body_pts``' leading axes allow), and their
+    derivatives in r6: (arm [..., 3], darm [..., 6, 3]); the translation
+    rows of ``darm`` are zero."""
+    R = rotation_matrix(r6[..., 3], r6[..., 4], r6[..., 5])
+    dR = rotation_matrix_derivatives(r6[..., 3], r6[..., 4], r6[..., 5])
+    arm = torch.einsum("...ij,...j->...i", R, body_pts)
+    darm = torch.einsum("...ijk,...j->...ki", dR, body_pts)
+    return arm, torch.cat([torch.zeros_like(darm), darm], dim=-2)
+
+
+class _Bridles:
+    """The bridle tensors (kind, ends, L, EA, w, Wp, cb, Wj, p0) of
+    :meth:`BridleSet.arrays`, each with optional leading batch axes
+    broadcasting against the pose's, placed at pose r6 [..., 6]: each
+    leg's terminal in the world ``ends_world [..., nB, K, 3]`` (vessel
+    legs' fairleads move with the body) and its derivative in r6
+    ``dends [..., nB, K, 6, 3]``."""
+
+    def __init__(self, r6, bridles):
+        (self.kind, self.ends, self.L, self.EA, self.w, self.Wp, self.cb,
+         self.Wj, self.p0) = bridles
+        self.active = self.kind >= 0.0
+        self.anchor = self.kind == 0.0
+        vessel = (self.kind == 1.0)[..., None]
+        r6b = r6[..., None, None, :]
+        arm, darm = _pose_arms(r6b, self.ends)
+        self.arm, self.darm = arm, darm
+        self.ends_world = torch.where(vessel, r6b[..., :3] + arm, self.ends)
+        self.dends = torch.where(vessel[..., None],
+                                 darm + torch.eye(6, 3, dtype=r6.dtype),
+                                 torch.zeros_like(darm))
+        # residual tolerance scaled by the legs' weight (the natural force
+        # scale of the junction balance; padded legs count, as in the JAX
+        # package)
+        self.f_scale = ((self.w * self.L).sum(-1) + self.Wp.sum(-1)).sum(-1) \
+            + torch.abs(self.Wj) + 1.0
+        self.batch = torch.broadcast_shapes(r6.shape[:-1],
+                                            self.Wj.shape[:-1])
+
+
+class _Legs:
+    """Every bridle leg solved with its junction at ``p [..., nB, 3]``:
+    the force on the junction ``F [..., nB, K, 3]``, the end tensions
+    ``T_top``/``T_bot`` and the fairlead components HF, VF (each leg a
+    catenary from its low end to its high end: anchor -> junction for
+    anchor legs, on the seabed, with friction; junction -> fairlead for
+    vessel legs, fully suspended).  Padded legs solve a fixed benign
+    geometry and contribute zeros.  With ``tangents`` it keeps the
+    catenary partials for :meth:`tangent`."""
+
+    def __init__(self, p, br, tangents=False):
+        self.br = br
+        a3 = br.anchor[..., None]
+        pk = p[..., None, :]
+        low = torch.where(a3, br.ends_world, pk)
+        high = torch.where(a3, pk, br.ends_world)
+        dxy = high[..., :2] - low[..., :2]
+        active = br.active
+        XF = torch.where(active, torch.sqrt(torch.sum(dxy**2, dim=-1)),
+                         torch.full_like(dxy[..., 0], 10.0))
+        ZF = torch.where(active, high[..., 2] - low[..., 2],
+                         torch.full_like(XF, 5.0))
+        out = catenary_solve(XF, ZF, br.L, br.EA, br.w, br.Wp, br.cb,
+                             tangents=tangents, seabed=br.anchor)
+        HF, VF = out[0], out[1]
+        self.dHV = out[2] if tangents else None
+        m = torch.clamp(XF, min=1e-9)
+        u = dxy / m[..., None]
+        W = torch.sum(br.w * br.L, dim=-1) + torch.sum(br.Wp, dim=-1)
+        VA = VF - W
+        Fxy = torch.where(a3, -HF[..., None] * u, HF[..., None] * u)
+        Fz = torch.where(br.anchor, -VF, VA)
+        zero = torch.zeros((), dtype=p.dtype)
+        self.F = torch.where(active[..., None],
+                             torch.cat([Fxy, Fz[..., None]], dim=-1), zero)
+        T_top = torch.sqrt(HF**2 + VF**2)
+        # bottom-end tension: suspended -> hypot(HF, VA); a grounded anchor
+        # end -> horizontal only, friction-decayed along the grounded
+        # length (MoorPy's CB branch, as in _tensions)
+        w0, L0 = br.w[..., 0], br.L[..., 0]
+        Vb = VF - (W - w0 * L0)
+        x = L0 - Vb / w0
+        LB = _clip(x, torch.zeros_like(L0), L0)
+        y = HF - br.cb * w0 * LB
+        HA = torch.clamp(y, min=0.0)
+        TA_s = torch.sqrt(HF**2 + VA**2)
+        # vessel legs are fully suspended: VA < 0 is sag below the
+        # junction, where the bottom tension is still hypot
+        grounded = br.anchor & (VA < 0)
+        self.T_top = torch.where(active, T_top, zero)
+        self.T_bot = torch.where(active, torch.where(grounded, HA, TA_s),
+                                 zero)
+        self.HF, self.VF = HF, VF
+        (self.dxy, self.XF, self.m, self.u, self.VA, self.TA_s, self.x,
+         self.y, self.grounded, self.Tt) = (dxy, XF, m, u, VA, TA_s, x, y,
+                                            grounded, T_top)
+
+    def net(self):
+        """The junctions' net force [..., nB, 3]: the legs' pulls and the
+        junction's own weight."""
+        Wj = self.br.Wj
+        return self.F.sum(-2) + torch.stack(
+            [torch.zeros_like(Wj), torch.zeros_like(Wj), -Wj], dim=-1)
+
+    def body(self):
+        """The vessel legs' 6-DOF reaction on the body [..., 6], each
+        pulling at its fairlead."""
+        F3 = self._body_force(self.HF, self.VF, self.u)
+        return translate_force_3to6(F3, self.br.arm).sum((-3, -2))
+
+    def _body_force(self, HF, VF, u):
+        vessel = (self.br.kind == 1.0)[..., None]
+        F3 = torch.cat([-HF[..., None] * u, -VF[..., None]], dim=-1)
+        return torch.where(vessel, F3, torch.zeros_like(F3))
+
+    def tangent(self, dp=None, dends=None, darm=None, net_only=False):
+        """Derivatives of the legs' outputs along D directions, given those
+        of the junctions ``dp [..., nB, D, 3]``, of the legs' terminals
+        ``dends [..., nB, K, D, 3]`` and of the body-frame fairlead arms
+        ``darm`` (same shape; None = zero): (dnet [..., nB, D, 3],
+        df6 [..., D, 6] of the body reaction, dT_bot and dT_top
+        [..., nB, K, D]), or dnet alone with ``net_only``."""
+        br = self.br
+        zero = torch.zeros((), dtype=self.HF.dtype)
+        dpk = zero if dp is None else dp[..., None, :, :]
+        dE = zero if dends is None else dends
+        a4 = br.anchor[..., None, None]
+        dd = torch.where(a4, dpk - dE, dE - dpk)          # d(high - low)
+        e = lambda t: t[..., None]  # noqa: E731
+        act = e(br.active)
+        dXF = torch.where(act, (dd[..., :2] * self.dxy[..., None, :]).sum(-1)
+                          / e(self.XF), torch.zeros_like(dd[..., 0]))
+        dZF = torch.where(act, dd[..., 2], torch.zeros_like(dd[..., 2]))
+        dHV = self.dHV
+        dHF = e(dHV[..., 0, 0]) * dXF + e(dHV[..., 0, 1]) * dZF
+        dVF = e(dHV[..., 1, 0]) * dXF + e(dHV[..., 1, 1]) * dZF
+        dm = dXF * e(_step(self.XF, 1e-9))
+        du = (dd[..., :2] - self.u[..., None, :] * dm[..., None]) \
+            / self.m[..., None, None]
+        HF, VF = e(self.HF), e(self.VF)
+        dFxy_s = dHF[..., None] * self.u[..., None, :] + HF[..., None] * du
+        dFxy = torch.where(a4, -dFxy_s, dFxy_s)
+        dFz = torch.where(e(br.anchor), -dVF, dVF)
+        dF = torch.where(act[..., None],
+                         torch.cat([dFxy, dFz[..., None]], dim=-1),
+                         torch.zeros_like(dd))
+        dnet = dF.sum(-3)
+        if net_only:
+            return dnet
+        # body reaction of the vessel legs: F3 = -(HF u, VF) at the arm
+        vessel = e(br.kind == 1.0)[..., None]
+        F3 = self._body_force(self.HF, self.VF, self.u)
+        dF3 = torch.where(vessel, -torch.cat([dFxy_s, dVF[..., None]], -1),
+                          torch.zeros_like(dd))
+        dM = cross(br.arm[..., None, :], dF3)
+        if darm is not None:
+            dM = dM + cross(darm, F3[..., None, :])
+        df6 = torch.cat([dF3, dM], dim=-1).sum((-4, -3))
+        dT_top = torch.where(act, (HF * dHF + VF * dVF) / e(self.Tt),
+                             torch.zeros_like(dHF))
+        w0 = e(br.w[..., 0])
+        dLB = -dVF / w0 * e(_clip_grad(self.x, torch.zeros_like(self.x),
+                                       br.L[..., 0]))
+        dHA = (dHF - e(br.cb) * w0 * dLB) * e(_step(self.y, 0.0))
+        dT_bot = torch.where(e(self.grounded), dHA,
+                             (HF * dHF + e(self.VA) * dVF) / e(self.TA_s))
+        dT_bot = torch.where(act, dT_bot, torch.zeros_like(dT_bot))
+        return dnet, df6, dT_bot, dT_top
+
+
+def _bridle_leg_force(p, end_world, kind, L, EA, w, Wp, cb=0.0):
+    """One bridle leg with its junction at ``p [..., 3]`` (the JAX
+    package's per-leg function): its terminal ``end_world [..., 3]``,
+    ``kind`` 0 (anchor leg), 1 (vessel leg) or -1 (padding), segments
+    ``L``/``EA``/``w``/``Wp [..., S]``, anchor-side friction ``cb``.
+    Returns (F_on_junction [..., 3], T_top, T_bot, HF, VF): T_top at the
+    leg's upper end, T_bot at its lower end, both zero for padding."""
+    t = lambda a: torch.as_tensor(a, dtype=p.dtype)  # noqa: E731
+    kind = t(kind)[..., None, None]
+    leg = types.SimpleNamespace(
+        kind=kind, active=kind >= 0.0, anchor=kind == 0.0,
+        ends_world=t(end_world)[..., None, None, :],
+        **{k: t(v)[..., None, None, :] for k, v in
+           (("L", L), ("EA", EA), ("w", w), ("Wp", Wp))},
+        cb=t(cb)[..., None, None])
+    legs = _Legs(p[..., None, :], leg)
+    sq = lambda a: a[..., 0, 0]  # noqa: E731
+    return (legs.F[..., 0, 0, :], sq(legs.T_top), sq(legs.T_bot),
+            sq(legs.HF), sq(legs.VF))
+
+
+def _junction_solve(br, iters=400):
+    """Junction positions p [..., nB, 3] balancing each bridle's legs and
+    junction weight: adaptive Levenberg–Marquardt from the design's
+    junction positions, per junction until its largest force residual is
+    below 1e-6 x its legs' force scale (cap ``iters``), a converged
+    junction keeping its state while the others go on.  The equilibrium
+    often sits within centimetres of a leg's slack/taut stiffness kink,
+    where a plain Newton zigzags on the ill-conditioned soft directions:
+    rejected steps raise the damping, accepted steps lower it back toward
+    Newton; steps are clipped to +-8 m.  No undamped Newton polish at
+    the root: near a kink it can jump far along the soft directions."""
+    dtype = br.p0.dtype
+    shape = br.batch + br.p0.shape[-2:]
+    p = br.p0.expand(shape).clone()
+    tol = 1e-6 * br.f_scale.expand(shape[:-1])
+    lam = torch.full(shape[:-1], 1e-4, dtype=dtype)
+    err = torch.full(shape[:-1], torch.inf, dtype=dtype)
+    # a junction whose step is rejected at the largest damping keeps its
+    # state (p, lam) for good: every later trip repeats the same rejected
+    # step, so it leaves the loop there with the bits the cap would give
+    stuck = torch.zeros(shape[:-1], dtype=torch.bool)
+    eye = torch.eye(3, dtype=dtype)
+    for _ in range(iters):
+        active = (err > tol) & ~stuck
+        if not bool(active.any()):
+            break
+        legs = _Legs(p, br, tangents=True)
+        F = legs.net()
+        n0 = torch.abs(F).amax(-1)
+        J = legs.tangent(dp=eye, net_only=True).transpose(-1, -2)
+        Jt = J.transpose(-1, -2)
+        JtJ = Jt @ J
+        mu = lam * torch.diagonal(JtJ, dim1=-2, dim2=-1).sum(-1) / 3.0
+        dp = torch.linalg.solve(JtJ + mu[..., None, None] * eye,
+                                -(Jt @ F[..., None]))[..., 0]
+        dp = torch.clamp(dp, -8.0, 8.0)
+        n1 = torch.abs(_Legs(p + dp, br).net()).amax(-1)
+        accept = n1 < n0
+        stuck = stuck | (active & ~accept & (lam == 30.0))
+        p = torch.where((active & accept)[..., None], p + dp, p)
+        lam = torch.where(active, torch.clamp(
+            torch.where(accept, lam / 2.0, lam * 2.0), 1e-9, 30.0), lam)
+        err = torch.where(active, torch.minimum(n1, n0), err)
+    return p
+
+
+def _junction_tangents(p, br, legs=None):
+    """The legs at the converged junctions p, with the junctions' pose
+    derivative by the implicit rule, dp/dr6 = -(d net/dp)^-1 d net/dr6
+    (one 3x3 solve per junction): (legs, dp [..., nB, 6, 3])."""
+    legs = _Legs(p, br, tangents=True) if legs is None else legs
+    eye = torch.eye(3, dtype=p.dtype)
+    J = legs.tangent(dp=eye, net_only=True).transpose(-1, -2)
+    Bm = legs.tangent(dends=br.dends, net_only=True).transpose(-1, -2)
+    dp = -torch.linalg.solve(J, Bm)
+    return legs, dp.transpose(-1, -2)
+
+
+class _JunctionRoot(torch.autograd.Function):
+    """The junction positions p [..., nB, 3] of :func:`_junction_solve`
+    at pose r6 [..., 6]; the bridle tensors are constants.
+
+    The reverse-mode derivative in r6 is implicit: the gradient is
+    ``(dp/dr6)^T gp`` with dp/dr6 from :func:`_junction_tangents` at the
+    converged point, never the unrolled loop.
+    """
+
+    @staticmethod
+    def forward(r6, *bridles):
+        return _junction_solve(_Bridles(r6, bridles))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+
+    @staticmethod
+    def backward(ctx, gp):
+        r6, *bridles, p = ctx.saved_tensors
+        _, dp = _junction_tangents(p, _Bridles(r6, tuple(bridles)))
+        g = torch.einsum("...bjc,...bc->...j", dp, gp)
+        return (g.sum_to_size(r6.shape),) + (None,) * len(bridles)
+
+
+def _bridle_terms(r6, bridles, tangents):
+    """The bridles' 6-DOF reaction on the body f6 [..., 6], each leg's
+    lower- and upper-end tensions TA, TB [..., nB, K] and each junction's
+    relative force residual [..., nB]; with ``tangents`` also the
+    derivatives in r6: df6 [..., 6, 6] (rows the force components) and
+    dTA, dTB [..., nB, K, 6]."""
+    br = _Bridles(r6, bridles)
+    if tangents:
+        legs, dp = _junction_tangents(_junction_solve(br), br)
+    else:
+        legs = _Legs(_JunctionRoot.apply(r6, *bridles), br)
+    resid = torch.abs(legs.net()).amax(-1).detach() / br.f_scale
+    f6 = legs.body()
+    if not tangents:
+        return f6, legs.T_bot, legs.T_top, resid
+    _, df6, dTA, dTB = legs.tangent(dp=dp, dends=br.dends, darm=br.darm)
+    return (f6, legs.T_bot, legs.T_top, resid, df6.transpose(-1, -2), dTA,
+            dTB)
+
+
+def bridle_forces(r6, bridles):
+    """6-DOF body reaction from every bridle at pose r6 [..., 6], each
+    leg's end tensions and the junctions' convergence signal.
+
+    Returns (f6 [..., 6], TA [..., nB, K], TB [..., nB, K],
+    resid [..., nB]): TA each leg's lower-end tension (anchor end for
+    anchor legs, friction-decayed when grounded; junction end for vessel
+    legs), TB its upper-end tension (junction end for anchor legs,
+    fairlead end for vessel legs), zero for padded legs; resid each
+    junction's largest force residual relative to its legs' weight."""
+    return _bridle_terms(r6, bridles, tangents=False)
+
+
 # ---------------- system-level forces ----------------
-
-def _no_bridles(bridles):
-    if bridles is not None:
-        raise NotImplementedError(BRIDLES_NOT_PORTED)
-
 
 def _defaults(L, Wp, cb):
     if Wp is None:
@@ -636,11 +986,11 @@ def _lines(r6, anchors, rFair, L, EA, w, Wp, cb, tangents):
     the fairlead geometry through (XF, ZF) and the catenary's implicit
     tangents: d f6 [..., 6, 6], dHF and dVF [..., nL, 6]."""
     R = rotation_matrix(r6[..., 3], r6[..., 4], r6[..., 5])
-    arm = torch.einsum("...ij,lj->...li", R, rFair)   # rotated fairleads
+    arm = torch.einsum("...ij,...lj->...li", R, rFair)  # rotated fairleads
     p = r6[..., None, :3] + arm                        # fairlead positions
-    dxy = p[..., :2] - anchors[:, :2]
+    dxy = p[..., :2] - anchors[..., :2]
     XF = torch.sqrt(torch.sum(dxy**2, dim=-1))
-    ZF = p[..., 2] - anchors[:, 2]
+    ZF = p[..., 2] - anchors[..., 2]
     # vertical-line guard: the direction is irrelevant when XF ~ 0
     m = torch.clamp(XF, min=1e-9)
     u = dxy / m[..., None]
@@ -653,7 +1003,7 @@ def _lines(r6, anchors, rFair, L, EA, w, Wp, cb, tangents):
     f6 = torch.sum(translate_force_3to6(F3, arm), dim=-2)
     # tangents [..., nL, 6 (pose component), 3 (vector)]
     dR = rotation_matrix_derivatives(r6[..., 3], r6[..., 4], r6[..., 5])
-    darm = torch.einsum("...ijk,lj->...lki", dR, rFair)
+    darm = torch.einsum("...ijk,...lj->...lki", dR, rFair)
     darm = torch.cat([torch.zeros_like(darm), darm], dim=-2)
     dp = darm + torch.eye(6, 3, dtype=r6.dtype)
     dXF = (dp[..., :2] * dxy[..., None, :]).sum(-1) / XF[..., None]
@@ -701,46 +1051,95 @@ def _tensions(HF, VF, L, w, Wp, cb, dHF=None, dVF=None):
     return T, torch.cat([dTA, dTB], dim=-2)
 
 
+def _system(r6, anchors, rFair, L, EA, w, Wp, cb, bridles, tangents):
+    """Trunk lines and bridles at pose r6: (f6 [..., 6], T [..., 2 nT],
+    resid [...]) and with ``tangents`` (..., df6 [..., 6, 6],
+    dT [..., 2 nT, 6]).  The tension channels are MoorPy's getTensions
+    order over every line object — anchor ends first, then fairlead
+    ends; within each, the trunk lines, then each bridle's K legs (padded
+    legs report zero):
+
+        [TA line 0..nL, TA leg (b, k) row-major, TB line ..., TB leg ...]
+
+    ``resid`` is the worst junction residual (0 without bridles)."""
+    Wp, cb = _defaults(L, Wp, cb)
+    out = _lines(r6, anchors, rFair, L, EA, w, Wp, cb, tangents)
+    if tangents:
+        f6, df6, HF, VF, dHF, dVF = out
+        T, dT = _tensions(HF, VF, L, w, Wp, cb, dHF, dVF)
+    else:
+        f6, HF, VF = out
+        T = _tensions(HF, VF, L, w, Wp, cb)
+    resid = torch.zeros(r6.shape[:-1], dtype=r6.dtype)
+    if bridles is not None:
+        b = _bridle_terms(r6, bridles, tangents)
+        nL = T.shape[-1] // 2
+        flat = lambda t: t.flatten(-2)  # noqa: E731
+        T = torch.cat([T[..., :nL], flat(b[1]).expand(T.shape[:-1] + (-1,)),
+                       T[..., nL:], flat(b[2]).expand(T.shape[:-1] + (-1,))],
+                      dim=-1)
+        f6 = f6 + b[0]
+        resid = b[3].amax(-1).expand(resid.shape)
+        if tangents:
+            df6 = df6 + b[4]
+            fl = lambda t: t.flatten(-3, -2).expand(  # noqa: E731
+                dT.shape[:-2] + (-1, 6))
+            dT = torch.cat([dT[..., :nL, :], fl(b[5]), dT[..., nL:, :],
+                            fl(b[6])], dim=-2)
+    if tangents:
+        return f6, T, resid, df6, dT
+    return f6, T, resid
+
+
 def line_forces(r6, anchors, rFair, L, EA, w, Wp=None, cb=None,
                 bridles=None):
     """6-DOF mooring reaction on the body at pose r6 [..., 6], plus each
-    line's fairlead tension components.  Line arrays are [nL, S]
-    (anchor -> fairlead).
+    trunk line's fairlead tension components.  Line arrays are [nL, S]
+    (anchor -> fairlead); ``bridles`` the tensors of
+    :meth:`BridleSet.arrays`, or None.
 
     Returns (f6 [..., 6], HF [..., nL], VF [..., nL]).
     """
-    _no_bridles(bridles)
     Wp, cb = _defaults(L, Wp, cb)
-    return _lines(r6, anchors, rFair, L, EA, w, Wp, cb, tangents=False)
+    f6, HF, VF = _lines(r6, anchors, rFair, L, EA, w, Wp, cb,
+                        tangents=False)
+    if bridles is not None:
+        f6 = f6 + bridle_forces(r6, bridles)[0]
+    return f6, HF, VF
 
 
 def line_tensions(r6, anchors, rFair, L, EA, w, Wp=None, cb=None,
                   bridles=None):
-    """End tensions [TA..., TB...] [..., 2 nL] (anchor ends first, then
-    fairlead ends), MoorPy's getTensions order."""
-    _no_bridles(bridles)
-    Wp, cb = _defaults(L, Wp, cb)
-    _, HF, VF = _lines(r6, anchors, rFair, L, EA, w, Wp, cb, tangents=False)
-    return _tensions(HF, VF, L, w, Wp, cb)
+    """End tensions [..., 2 (nL + nB K)] in the order of :func:`_system`
+    (anchor ends first, then fairlead ends), MoorPy's getTensions
+    order."""
+    return _system(r6, anchors, rFair, L, EA, w, Wp, cb, bridles, False)[1]
 
 
 def body_hydrostatic_force(r6, m, v, rCG, rM, AWP, rho=1025.0, g=9.81):
     """Weight + buoyancy + waterplane heave stiffness of the rigid body at
     pose r6 [..., 6], buoyancy applied at the metacenter rM (MoorPy Body
-    convention), and its derivative in r6 [..., 6, 6]."""
+    convention), and its derivative in r6 [..., 6, 6].  The body
+    properties may carry batch axes broadcasting against the pose's."""
+    dt = r6.dtype
+    m, v, AWP, rCG, rM = (torch.as_tensor(a, dtype=dt)
+                          for a in (m, v, AWP, rCG, rM))
+    m, v, AWP = torch.broadcast_tensors(m, v, AWP)
     R = rotation_matrix(r6[..., 3], r6[..., 4], r6[..., 5])
-    zero = torch.zeros((), dtype=r6.dtype)
-    Fw = torch.stack([zero, zero, torch.as_tensor(-m * g, dtype=r6.dtype)])
-    Fb = torch.stack([zero, zero,
-                      torch.as_tensor(rho * v * g, dtype=r6.dtype)])
-    f6 = translate_force_3to6(Fw, R @ rCG) + translate_force_3to6(Fb, R @ rM)
+    zero = torch.zeros_like(m)
+    Fw = torch.stack([zero, zero, -m * g], dim=-1)
+    Fb = torch.stack([zero, zero, rho * v * g], dim=-1)
+    f6 = (translate_force_3to6(Fw, torch.einsum("...ij,...j->...i", R, rCG))
+          + translate_force_3to6(Fb, torch.einsum("...ij,...j->...i", R,
+                                                  rM)))
     f6 = torch.cat([f6[..., :2],
-                    f6[..., 2:3] + (-rho * g * AWP * r6[..., 2:3]),
+                    f6[..., 2:3] + (-rho * g * AWP[..., None] * r6[..., 2:3]),
                     f6[..., 3:]], dim=-1)
     dR = rotation_matrix_derivatives(r6[..., 3], r6[..., 4], r6[..., 5])
-    dM = (cross(torch.einsum("...ijk,j->...ki", dR, rCG), Fw)
-          + cross(torch.einsum("...ijk,j->...ki", dR, rM), Fb))
-    J = torch.zeros(r6.shape + (6,), dtype=r6.dtype)
+    dM = (cross(torch.einsum("...ijk,...j->...ki", dR, rCG), Fw[..., None, :])
+          + cross(torch.einsum("...ijk,...j->...ki", dR, rM),
+                  Fb[..., None, :]))
+    J = torch.zeros(f6.shape + (6,), dtype=dt)
     J[..., 3:, 3:] = dM.transpose(-1, -2)
     J[..., 2, 2] = -rho * g * AWP
     return f6, J
@@ -751,14 +1150,13 @@ def solve_equilibrium(f6_ext, body_props, anchors, rFair, L, EA, w, Wp=None,
                       step_tol=1e-8):
     """Body poses r6 [..., 6] where mooring + hydrostatics + the external
     mean loads f6_ext [..., 6] balance: damped Newton with the exact
-    Jacobian (the lines' tangents plus the body's), per lane until its
-    step is below ``step_tol`` (translations m, rotations rad) or
-    ``iters`` is reached.  A converged lane stops moving while the others
-    go on.
+    Jacobian (the lines' and bridles' tangents plus the body's), per lane
+    until its step is below ``step_tol`` (translations m, rotations rad)
+    or ``iters`` is reached.  A converged lane stops moving while the
+    others go on.
 
     body_props : (m, v, rCG[3], rM[3], AWP)
     """
-    _no_bridles(bridles)
     m, v, rCG, rM, AWP = body_props
     Wp, cb = _defaults(L, Wp, cb)
     step_cap = torch.tensor([10.0, 10.0, 10.0, 0.1, 0.1, 0.1],
@@ -771,8 +1169,8 @@ def solve_equilibrium(f6_ext, body_props, anchors, rFair, L, EA, w, Wp=None,
         active = err > tol
         if not bool(active.any()):
             break
-        f_lines, J_lines = _lines(r6, anchors, rFair, L, EA, w, Wp, cb,
-                                  tangents=True)[:2]
+        f_lines, _, _, J_lines, _ = _system(r6, anchors, rFair, L, EA, w,
+                                            Wp, cb, bridles, True)
         f_body, J_body = body_hydrostatic_force(r6, m, v, rCG, rM, AWP, rho,
                                                 g)
         F = f_lines + f_body + f6_ext
@@ -795,42 +1193,65 @@ def solve_equilibrium(f6_ext, body_props, anchors, rFair, L, EA, w, Wp=None,
 def coupled_stiffness(r6, anchors, rFair, L, EA, w, Wp=None, cb=None,
                       bridles=None):
     """Mooring-only stiffness C = -d f6_lines / d r6 [..., 6, 6] about
-    pose r6 (the lines' tangents)."""
-    _no_bridles(bridles)
-    Wp, cb = _defaults(L, Wp, cb)
-    return -_lines(r6, anchors, rFair, L, EA, w, Wp, cb, tangents=True)[1]
+    pose r6 (the lines' and bridles' tangents)."""
+    return -_system(r6, anchors, rFair, L, EA, w, Wp, cb, bridles, True)[3]
 
 
 def tension_jacobian(r6, anchors, rFair, L, EA, w, Wp=None, cb=None,
                      bridles=None):
-    """J_moor = d tensions / d r6  [..., 2 nL, 6]."""
-    _no_bridles(bridles)
-    Wp, cb = _defaults(L, Wp, cb)
-    _, _, HF, VF, dHF, dVF = _lines(r6, anchors, rFair, L, EA, w, Wp, cb,
-                                    tangents=True)
-    return _tensions(HF, VF, L, w, Wp, cb, dHF, dVF)[1]
+    """J_moor = d tensions / d r6  [..., 2 (nL + nB K), 6]; bridle leg rows
+    carry the junctions' implicit pose tangents."""
+    return _system(r6, anchors, rFair, L, EA, w, Wp, cb, bridles, True)[4]
 
 
 def case_mooring(f6_ext, m, v, rCG, rM, AWP, anchors, rFair, L, EA, w,
                  Wp=None, cb=None, bridles=None, rho=1025.0, g=9.81,
                  yawstiff=0.0):
-    """Per-case mooring analysis for mean loads f6_ext [nc, 6]: the
+    """Per-case mooring analysis for mean loads f6_ext [..., nc, 6]: the
     equilibrium pose plus every linearized quantity the dynamics consumes
     (reference raft/raft_model.py:332-392 calcMooringAndOffsets), the
-    linearizations from one tangent evaluation at the pose.
+    linearizations from one tangent evaluation at the pose.  The body
+    properties and line arrays may carry leading design axes that
+    broadcast against ``f6_ext``'s (the design sweeps).
 
-    Returns (r6 [nc,6], C_moor [nc,6,6], F_moor [nc,6], T_moor [nc,2nL],
-    J_moor [nc,2nL,6], moor_resid [nc]); ``moor_resid`` is the bridle
-    junction residual of the JAX package, always 0 here.
+    Returns (r6 [..., nc, 6], C_moor [..., nc, 6, 6], F_moor [..., nc, 6],
+    T_moor [..., nc, 2nT], J_moor [..., nc, 2nT, 6], moor_resid [..., nc]);
+    ``moor_resid`` is the worst bridle-junction residual at the pose (0
+    without bridles), surfaced so an iteration-capped junction solve
+    cannot feed the linearization silently.
     """
-    _no_bridles(bridles)
     Wp, cb = _defaults(L, Wp, cb)
     lines = (anchors, rFair, L, EA, w, Wp, cb)
     r6 = solve_equilibrium(f6_ext, (m, v, rCG, rM, AWP), *lines,
-                           rho=rho, g=g)
-    F_moor, df6, HF, VF, dHF, dVF = _lines(r6, *lines, tangents=True)
+                           bridles=bridles, rho=rho, g=g)
+    F_moor, T_moor, resid, df6, J_moor = _system(r6, *lines, bridles, True)
     yaw = torch.zeros(6, 6, dtype=df6.dtype)
     yaw[5, 5] = yawstiff
-    T_moor, J_moor = _tensions(HF, VF, L, w, Wp, cb, dHF, dVF)
-    return r6, -df6 + yaw, F_moor, T_moor, J_moor, torch.zeros_like(
-        r6[..., 0])
+    return r6, -df6 + yaw, F_moor, T_moor, J_moor, resid
+
+
+# bridle-junction convergence reporting shared by every consumer (the
+# Model's cases and both fused sweeps): the junction solver iterates to
+# 1e-6 x the legs' force scale, so a relative residual above this is an
+# iteration-capped exit worth surfacing (warn and continue, like the
+# dynamics' `converged`)
+BRIDLE_RESID_TOL = 1e-5
+
+
+def warn_bridle_residual(moor_resid, label="case"):
+    """Warn through the package logger for every leading-axis entry of
+    ``moor_resid`` (one per case or design; trailing axes reduced by max)
+    whose bridle force-balance residual exceeds
+    :data:`BRIDLE_RESID_TOL`."""
+    from raft_tpu_torch.utils.profiling import logger
+
+    r = np.asarray(moor_resid)
+    if r.ndim == 0:
+        r = r[None]
+    r = r.reshape(len(r), -1).max(axis=1)
+    for i in np.nonzero(r > BRIDLE_RESID_TOL)[0]:
+        logger.warning(
+            "%s %d: bridle junction solve residual %.2e exceeds "
+            "tolerance; mooring linearization may be off.",
+            label, i + 1, r[i],
+        )

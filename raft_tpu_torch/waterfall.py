@@ -197,11 +197,15 @@ class SuspendedWaterfall:
 # engine stats of the most recent dispatch in this process, read through
 # last_dispatch_stats()
 _LAST_STATS = {}
+# the stats that add up over slabs and groups
+_SUMMED_STATS = ("n_lanes", "lanes_padded", "blocks", "lane_iters_executed",
+                 "lane_iters_monolithic", "flops_executed")
 
 
 def last_dispatch_stats():
     """Stats of the most recent waterfall dispatch in this process:
-    ``n_lanes``; ``blocks``; ``rungs`` (the lane counts the blocks ran
+    ``n_lanes``; ``lanes_padded`` (the lanes of the rungs the descents
+    started at); ``blocks``; ``rungs`` (the lane counts the blocks ran
     at); ``lane_iters_executed`` (sum of rung x K over the blocks);
     ``lane_iters_monolithic`` (max trips x padded lane count, what the
     legacy batch pays); ``block_iters``; ``kernel``; ``yields``; and
@@ -310,8 +314,7 @@ def _slabbed(physics, nodes, args, relax, K, kernel, S, shared_nodes,
         if agg is None:
             agg = dict(st, rungs=list(st["rungs"]))
         else:
-            for key in ("n_lanes", "blocks", "lane_iters_executed",
-                        "lane_iters_monolithic", "flops_executed"):
+            for key in _SUMMED_STATS:
                 agg[key] += st[key]
             agg["rungs"] += st["rungs"]
     _LAST_STATS.clear()
@@ -436,7 +439,7 @@ def _waterfall_loop(physics, relax, K, kernel, shared_nodes,
 
     _LAST_STATS.clear()
     _LAST_STATS.update(
-        n_lanes=L, blocks=blocks, rungs=rungs,
+        n_lanes=L, lanes_padded=Lq, blocks=blocks, rungs=rungs,
         lane_iters_executed=lane_iters,
         lane_iters_monolithic=trips * Lq,
         block_iters=K, kernel=bool(kernel), yields=yields,
@@ -460,3 +463,134 @@ def waterfall_case_dispatch(model, args, kernel=False, block=None):
         case_args_from_numpy(args, model.device, model.dtype),
         block=block, kernel=kernel, shared_nodes=True,
         mixed_precision=model.mixed_precision)
+
+
+def _merge_stats(stats):
+    """The dispatch stats of several waterfall dispatches added up (the
+    sweeps' per-group dispatches), left as :func:`last_dispatch_stats`."""
+    agg = dict(stats[0], rungs=list(stats[0]["rungs"]))
+    for st in stats[1:]:
+        for key in _SUMMED_STATS:
+            agg[key] += st[key]
+        agg["rungs"] += st["rungs"]
+    _LAST_STATS.clear()
+    _LAST_STATS.update(agg)
+
+
+def grouped_waterfall_pipeline(model0, relax=0.8, kernel=False, block=None):
+    """Waterfall drop-in for ``sweep._sweep_pipeline``'s [design, case]
+    function: call it as ``(nodes_b, zeta, beta, C, M, B, Fr, Fi)`` with a
+    leading [nd] (nodes, tensors on the working device) and [nd, nc]
+    (operands), get ``(xr [nd, nc, 6, nw], xi, report)``.  The lanes are
+    flattened design-major, case-minor through one waterfall descent, so
+    every lane keeps the legacy solve's bits (``kernel=True``: to
+    round-off).  The sweep's bounded retry keeps the legacy solve."""
+    from raft_tpu_torch.serve.buckets import SlotPhysics
+
+    physics = SlotPhysics.from_model(model0)
+
+    def pipeline(nodes_b, *args_b):
+        nd, nc = args_b[0].shape[:2]
+        L = int(nd) * int(nc)
+        nodes_flat = _map_nodes(lambda a: a.repeat_interleave(nc, dim=0),
+                                nodes_b)
+        args_flat = tuple(a.reshape((L,) + tuple(a.shape[2:]))
+                          for a in args_b)
+        xr, xi, rep = waterfall_dispatch(
+            physics, nodes_flat, args_flat, relax=relax, block=block,
+            kernel=kernel, slab=ladder_lanes(L))
+        shape = lambda a: a.reshape((nd, nc) + a.shape[1:])  # noqa: E731
+        return shape(xr), shape(xi), SolveReport(*(shape(f) for f in rep))
+
+    return pipeline
+
+
+def hub_pattern(hHub, dtype, device):
+    """The constant 6x6 pattern of a unit fore-aft hub added mass
+    translated to the platform reference point: the sweeps' hub
+    aero-servo terms are a(w) and b(w) times it."""
+    from raft_tpu_torch.utils.frames import translate_matrix_3to6
+
+    E00 = torch.zeros((3, 3), dtype=torch.float64)
+    E00[0, 0] = 1.0
+    return translate_matrix_3to6(
+        E00, torch.tensor([0.0, 0.0, float(hHub)], dtype=torch.float64)
+    ).to(device, dtype)
+
+
+def sweep_lanes(nodes_flat, zeta, beta, C_flat, M0_flat, a_flat, b_flat,
+                P_hub, nB):
+    """The fused sweeps' (design row x case) lanes of one draft group,
+    flattened design-major, case-minor: per-lane node bundles and the
+    7-tuple of case operands, with the rank-1 hub profiles made per lane,
+    ``M_lin = M0 + a(w) P_hub`` and ``B_lin = b(w) P_hub``.
+
+    nodes_flat : HydroNodes [n_designs, N, ...]; zeta [ncc, nw], beta
+    [ncc]; C_flat [n_rows, ncc, 6, 6], M0_flat [n_rows, 6, 6], a_flat and
+    b_flat [n_rows, ncc, nw]; ``nB`` design rows share a node bundle."""
+    n_rows, ncc, nw = a_flat.shape
+    L = n_rows * ncc
+    device = a_flat.device
+    idx = torch.arange(L, device=device)
+    ri = idx // ncc                                  # design row
+    ci = idx % ncc                                   # case
+    nodes_l = _map_nodes(lambda a: a.index_select(0, ri // nB), nodes_flat)
+    M_lin = M0_flat[ri][:, None] + a_flat[ri, ci][:, :, None, None] * P_hub
+    B_lin = b_flat[ri, ci][:, :, None, None] * P_hub
+    Fz = torch.zeros((L, nw, 6), dtype=a_flat.dtype, device=device)
+    return nodes_l, (zeta[ci], beta[ci], C_flat[ri, ci], M_lin, B_lin, Fz,
+                     Fz)
+
+
+def group_operands(g, nodes_g, C_g, M0_g, a_g, b_g):
+    """Group ``g``'s operands of the fused sweeps' pipeline (leading
+    group axes [G, gd(, nB)]) with the design axes flattened: (nodes
+    [gd, ...], C [rows, ncc, 6, 6], M0 [rows, 6, 6], a, b
+    [rows, ncc, nw], nB)."""
+    lead = C_g.shape[1:-3]                # (gd, nB) or (gd,)
+    n_rows = int(np.prod(lead, dtype=np.int64))
+    nB = n_rows // int(lead[0])
+    ncc, nw = a_g.shape[-2:]
+    nodes = _map_nodes(lambda a: a[g], nodes_g)
+    return (nodes, C_g[g].reshape(n_rows, ncc, 6, 6),
+            M0_g[g].reshape(n_rows, 6, 6), a_g[g].reshape(n_rows, ncc, nw),
+            b_g[g].reshape(n_rows, ncc, nw), nB)
+
+
+def fused_waterfall_pipeline(model0, return_xi, relax=0.8, kernel=False,
+                             block=None):
+    """Waterfall drop-in for ``sweep_fused._dynamics_pipeline``: the same
+    call ``(nodes_g, zeta, beta, C_g, M0_g, a_g, b_g)`` with leading group
+    axes [G, gd(, nB)] and the same outputs ``(std, report[, xr, xi])``
+    flattened [G * rows * ncc, ...] design-major, case-minor.  Each draft
+    group is one waterfall descent at its own rung (``ladder_lanes`` of
+    its lanes), which bounds the live device memory to a group, as the
+    legacy pipeline's loop over groups does; the hub profiles
+    ``M_lin = M0 + a(w) P_hub`` are made per lane.  The sweep's bounded
+    retry keeps the legacy solve."""
+    from raft_tpu_torch.serve.buckets import SlotPhysics
+
+    physics = SlotPhysics.from_model(model0)
+    dw = float(model0.w[1] - model0.w[0])
+
+    def pipeline(nodes_g, zeta, beta, C_g, M0_g, a_g, b_g):
+        P_hub = hub_pattern(model0.hHub, C_g.dtype, C_g.device)
+        outs, stats = [], []
+        for g in range(C_g.shape[0]):
+            nodes, C, M0, a, b, nB = group_operands(g, nodes_g, C_g, M0_g,
+                                                    a_g, b_g)
+            nodes_l, args = sweep_lanes(nodes, zeta, beta, C, M0, a, b,
+                                        P_hub, nB)
+            L = args[0].shape[0]
+            outs.append(waterfall_dispatch(
+                physics, nodes_l, args, relax=relax, block=block,
+                kernel=kernel, slab=ladder_lanes(L)))
+            stats.append(last_dispatch_stats())
+        _merge_stats(stats)
+        xr = torch.cat([o[0] for o in outs])
+        xi = torch.cat([o[1] for o in outs])
+        rep = SolveReport(*(torch.cat(f) for f in zip(*(o[2] for o in outs))))
+        std = torch.sqrt(torch.sum(xr * xr + xi * xi, dim=-1) * dw)
+        return (std, rep, xr, xi) if return_xi else (std, rep)
+
+    return pipeline

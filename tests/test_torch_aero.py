@@ -174,9 +174,8 @@ def test_aero_servo_contributions_match(mod, wind, turb):
 
 
 def test_unported_sweep_paths_raise(rotors):
+    """The guided path (phi0) is ported (tests/test_torch_sweep_fused.py);
+    the host-mesh sharding of the rotor lanes is not."""
     tr = rotors["tr"]
-    phi0 = np.zeros((1, 4, 10))
-    for call in (lambda: tr.run_bem_batch([10.0], 0.0, phi0=phi0),
-                 lambda: tr.run_bem_batch([10.0], 0.0, n_devices=2)):
-        with pytest.raises(NotImplementedError, match="queue 1 step 8"):
-            call()
+    with pytest.raises(NotImplementedError, match="queue 1 step 8"):
+        tr.run_bem_batch([10.0], 0.0, n_devices=2)

@@ -150,8 +150,12 @@ def test_bridled_design_raises_not_implemented():
     assert ms.bridles is not None and ms.bridles.n == 1
     from raft_tpu_torch.model import Model
 
+    # bridles are ported (tests/test_torch_bridles.py): the design builds,
+    # and a path still to port raises naming its ROADMAP.md step
+    m = Model(d, device="cpu")
+    assert m._bridle_arrays is not None
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Model(d, device="cpu")
+        Model(d, device="cpu", slots=16)
 
 
 # single lines (L, EA, w, Wp, cb) at spans (XF, ZF) in three regimes
@@ -221,7 +225,7 @@ def test_catenary_reverse_gradient_matches_jax_grad(case):
 _FUNCTORCH = ("vmap", "jvp", "jacfwd", "jacrev", "vjp", "hessian")
 
 
-@pytest.mark.parametrize("name", ["flagship", "aero"])
+@pytest.mark.parametrize("name", ["flagship", "aero", "bridled"])
 def test_host_prep_runs_no_functorch_transform(monkeypatch, name):
     """prepare_case_inputs of the flagship (128 w x 12 cases) and of the
     aero design at the same width, with every torch.func transform — and
@@ -246,9 +250,13 @@ def test_host_prep_runs_no_functorch_transform(monkeypatch, name):
             if any(val is o for o in originals):
                 monkeypatch.setattr(mod, attr, refuse)
     assert not getattr(tm._CatenaryRoot, "generate_vmap_rule", False)
-    design = designs.flagship(0.00625, 0.8, 12) if name == "flagship" \
-        else designs.demo_semi_aero(n_cases=12, n_wind=6,
-                                    nw_settings=(0.00625, 0.8))
+    assert not getattr(tm._JunctionRoot, "generate_vmap_rule", False)
+    design = {
+        "flagship": lambda: designs.flagship(0.00625, 0.8, 12),
+        "aero": lambda: designs.demo_semi_aero(
+            n_cases=12, n_wind=6, nw_settings=(0.00625, 0.8)),
+        "bridled": lambda: designs.demo_semi_bridled(12, (0.00625, 0.8)),
+    }[name]()
     m = raft_tpu_torch.Model(design, device="cpu")
     m.analyze_unloaded()
     args, aux = m.prepare_case_inputs(verbose=False)

@@ -106,12 +106,37 @@ Phases (each prints a line; any failure raises and exits non-zero):
     delta_rho to 1e-6; designs 0, 8 and 15's Xi0 and T_moor to 1e-8 and
     |Xi| within raft_tpu's bars), and
     ``run_sweep`` of the semi's 6-point grid run again from its
-    checkpoints, bit-identical.
+    checkpoints, bit-identical;
+19. the Gauss-Jordan solve's backward (``dynamics.GaussSolve``) at
+    [1536, 12, 13] in float64 and float32: one backward launch of the
+    kernel on the transposed systems [A^T | g], A_bar and b_bar against
+    the plain version's backward within 1e-12 max|x| (float64),
+    ``gradcheck`` on the card, the backward's call and device times,
+    its bound and ``torch.linalg.solve``'s backward (the yardstick);
+20. exact design gradients on the card, on the flagship and the aero
+    design: ``parametric.design_gradients`` (values within 1e-10 and the
+    Jacobian within 1e-8 of the port on the CPU, every entry within 1e-4
+    of central differences of the port's own response on the card), then
+    ``grad.design_value_and_grad`` for rao_pitch_peak and pitch_max_deg
+    (the value bit-identical to the response's, the gradient within 5e-3
+    of the differences), with the forward/backward seconds, the
+    host/device split, the adjoint trips and the gj_solve launches
+    forward and backward; a lane with an injected NaN gives an all-zero
+    gradient and the nonfinite flag;
+21. batched design prep: 256 flagship designs (16 drafts x 16 column
+    diameters) through ``batched_prep.PrepFamily.prepare`` on the card
+    against solo prep (raft_tpu's round-off bars), bits across block
+    compositions, the geometry program on the card and on the CPU, and
+    ``run_design_sweep(batched_prep=True)`` against ``False`` (1e-10),
+    the prep stage's seconds both ways and the designs each path took.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  In the kernel table ``ms`` is the
 time of one call from Python (as ``plain_ms`` and ``library_ms`` are
-taken); ``device_ms``, where given, the kernel's device time alone.
+taken); ``device_ms``, where given, the kernel's device time alone; the
+``backward_*`` keys of ``gj_solve`` are phase 19's, its
+``launches_backward_grad`` the backward launches of phase 20's flagship
+Jacobian and ``launches_batched_prep_sweep`` phase 21's batched sweep.
 Without CUDA, or without the raft_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -1170,6 +1195,382 @@ def general_sweeps_phase(rt, card):
     return launches
 
 
+# ------------------------------------------- gradients and batched prep
+
+# the card the gradient and batched-prep phases run on
+CARD = "cuda"
+# phase 21's column-diameter scales (its drafts are phase 17's DRAFTS)
+DIAMETERS = np.linspace(0.9, 1.1, 16)
+
+def gj_backward_phase(gk, dtype):
+    """Phase 19: GaussSolve's backward at the main path's [1536, 12, 13]:
+    lam = A^-T g by one backward launch of the kernel on [A^T | g], then
+    A_bar = -lam x^T and b_bar = lam, against the plain version's
+    backward (the plain elimination of the same transposed systems on the
+    card) within 1e-12 max|x| in float64 (1e-5 in float32; the same bits
+    are expected); gradcheck on a small float64 batch; the backward's
+    call and device times, its bound (bytes of [A^T | g] in and lam out,
+    the elimination's operations) and torch.linalg.solve's backward."""
+    from raft_tpu_torch.dynamics import GaussSolve
+
+    g = torch.Generator().manual_seed(19)
+    A = torch.randn(B, N, N, generator=g, dtype=torch.float64) \
+        + N * torch.eye(N, dtype=torch.float64)
+    A[100:164] = A[100:164].roll(1, dims=1)      # row swaps at every step
+    b = torch.randn(B, N, 1, generator=g, dtype=torch.float64)
+    c = torch.randn(B, N, 1, generator=g, dtype=torch.float64)
+    A, b, c = (t.to(CARD, dtype) for t in (A, b, c))
+    A.requires_grad_(True)
+    b.requires_grad_(True)
+    x = GaussSolve.apply(A, b)
+    n0 = gk.launches_backward
+    gA, gb = torch.autograd.grad(x, (A, b), c, retain_graph=True)
+    torch.cuda.synchronize()
+    if gk.launches_backward != n0 + 1:
+        raise AssertionError("the backward did not launch the kernel once")
+    At = torch.cat([A.detach().transpose(-1, -2), c], -1).contiguous()
+
+    def plain():
+        lam = gk.gj_solve_reference(At)[0][..., N:]
+        return -lam @ x.detach().transpose(-1, -2), lam
+
+    pA, pb = plain()
+    err = max((gA - pA).abs().max().item(), (gb - pb).abs().max().item())
+    bits = torch.equal(gA, pA) and torch.equal(gb, pb)
+    tol = (1e-12 if dtype == torch.float64 else 1e-5) \
+        * x.detach().abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{dtype}: backward max|d| {err} > {tol}")
+    gc = True
+    if dtype == torch.float64:
+        A6 = (torch.randn(4, 6, 6, generator=g, dtype=torch.float64)
+              + 6 * torch.eye(6, dtype=torch.float64)).to(CARD)
+        b6 = torch.randn(4, 6, 1, generator=g, dtype=torch.float64).to(CARD)
+        gc = torch.autograd.gradcheck(
+            GaussSolve.apply, (A6.requires_grad_(), b6.requires_grad_()))
+    ms = cuda_ms(lambda: torch.autograd.grad(x, (A, b), c,
+                                             retain_graph=True), 100)
+    device_ms = graph_ms(lambda: gk.gj_solve(At, backward=True), 50)
+    plain_ms = cuda_ms(plain, 20)
+    A2 = A.detach().clone().requires_grad_(True)
+    b2 = b.detach().clone().requires_grad_(True)
+    x2 = torch.linalg.solve(A2, b2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        x2, (A2, b2), c, retain_graph=True), 50)
+    item = torch.finfo(dtype).bits // 8
+    bound_ms, bound_by = bound((B * N * M + B * N) * item,
+                               B * N * (M + 2 * (N - 1) * M), dtype)
+    print(f"phase gj_solve backward {dtype_name(dtype)}: [{B},{N},{M}] "
+          f"[A^T|g] bit_identical={bits} max_abs_err={err:.3e} "
+          f"tol={tol:.3e} gradcheck={gc} ms={ms:.5f} "
+          f"device_ms={device_ms:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms={library_ms:.5f} (torch.linalg.solve backward) "
+          f"bound_ms={bound_ms:.6f} ({bound_by})", flush=True)
+    return dict(backward_max_abs_err=err, backward_ms=ms,
+                backward_device_ms=device_ms, backward_plain_ms=plain_ms,
+                backward_library_ms=library_ms, backward_bound_ms=bound_ms,
+                backward_bound_by=bound_by)
+
+
+FD_EPS = 1e-4
+
+
+def _fd_stencil(f, metrics):
+    """Finite-difference derivatives of ``f``'s metrics in each parameter
+    at theta0: central differences, one-sided second-order ones for the
+    draft (theta_draft = 1 sits on a kink of the semi, a waterline clip
+    that switches, as in raft_tpu's tests/test_grad.py), each taken at
+    eps = 1e-4 and 5e-5 and Richardson-extrapolated, (4 D(eps/2) -
+    D(eps)) / 3, so that the stencil's own error (eps^2 times the third
+    derivative, large at the RAO peak of the 128-frequency grid) drops
+    to eps^4.  Returns (values at theta0, {metric: [d/dparam]})."""
+    from raft_tpu_torch.utils.placement import host_threads
+
+    def at(i, s):
+        th = torch.ones(4, dtype=torch.float64)
+        th[i] += s
+        with torch.no_grad():
+            return {k: float(v) for k, v in f(th).items()}
+
+    with host_threads():
+        v0 = at(0, 0.0)
+        pts = {(i, m * h): at(i, m * h * FD_EPS) for i in range(4)
+               for h in (1.0, 0.5) for m in ((1, -1, 2) if i == 0
+                                               else (1, -1))}
+
+    def D(k, i, h):
+        p, m = pts[(i, h)][k], pts[(i, -h)][k]
+        if i == 0:
+            return (-3.0 * v0[k] + 4.0 * p - pts[(i, 2 * h)][k]) \
+                / (2 * h * FD_EPS)
+        return (p - m) / (2 * h * FD_EPS)
+
+    fd = {k: [(4.0 * D(k, i, 0.5) - D(k, i, 1)) / 3.0 for i in range(4)]
+          for k in metrics}
+    return v0, fd
+
+
+def design_gradients_phase(rt, card):
+    """Phase 20: exact design gradients on the card.  On the flagship
+    (128 w x 12 cases plus the unit-wave case) and the aero design:
+    design_gradients with the dynamics on the card against the same on
+    the CPU (values 1e-10, Jacobian 1e-8 relative) and against central
+    differences of the port's own response on the card (1e-4, raft_tpu's
+    bar); then design_value_and_grad (the implicit adjoints) for
+    rao_pitch_peak and pitch_max_deg: the value equal to f(theta0) on the
+    card bit for bit, the gradient within 5e-3 of the differences; one
+    lane with an injected NaN gives an all-zero gradient and the
+    nonfinite flag.  Times, the host/device split, the adjoint trips and
+    the gj_solve launches forward and backward."""
+    from raft_tpu_torch import parametric as tp
+    from raft_tpu_torch.grad import design_value_and_grad
+    from raft_tpu_torch.grad import fixed_point as tfp
+    from raft_tpu_torch.kernels import gj_solve as gk
+    from raft_tpu_torch.utils.placement import host_threads
+
+    names = tp.PARAM_NAMES
+    launches = {}
+    for label, design in (("flagship", flagship(rt)),
+                          ("aero", aero_design(rt))):
+        t0 = time.perf_counter()
+        v_cpu, j_cpu = tp.design_gradients(design, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        with host_threads():
+            f, th0 = tp.build_design_response(design)
+            with torch.no_grad():
+                f(th0)                     # warm: the card's first call
+            gk.launches = gk.launches_backward = 0
+            t0 = time.perf_counter()
+            th = th0.clone().requires_grad_(True)
+            vals = f(th)
+            t_fwd = time.perf_counter() - t0
+            split = dict(tp.timing)
+            fwd_launches = gk.launches
+            t0 = time.perf_counter()
+            jac = {}
+            for j, k in enumerate(vals):
+                (gk_,) = torch.autograd.grad(vals[k], th,
+                                             retain_graph=j < len(vals) - 1,
+                                             allow_unused=True)
+                jac[k] = [0.0] * 4 if gk_ is None else gk_.tolist()
+            t_bwd = time.perf_counter() - t0
+        launches[label] = dict(gj_solve=fwd_launches,
+                               gj_solve_backward=gk.launches_backward)
+        worst_v = worst_j = worst_fd = 0.0
+        for k, v in vals.items():
+            v = float(v.detach())
+            worst_v = max(worst_v, abs(v - v_cpu[k]) / abs(v_cpu[k]))
+            for i, p in enumerate(names):
+                ref = j_cpu[k][p]
+                scale = max(abs(ref), 1e-9 * abs(v))
+                worst_j = max(worst_j, abs(jac[k][i] - ref) / scale)
+        if not (worst_v <= 1e-10 and worst_j <= 1e-8):
+            raise AssertionError(f"{label}: card vs CPU values {worst_v:.3e}"
+                                 f" Jacobian {worst_j:.3e}")
+        v0, fd = _fd_stencil(f, list(vals))
+        for k in vals:
+            for i, p in enumerate(names):
+                scale = abs(fd[k][i]) + 1e-9 * max(abs(v0[k]), 1.0)
+                rel = abs(jac[k][i] - fd[k][i]) / scale
+                worst_fd = max(worst_fd, rel)
+                if rel > 1e-4:
+                    raise AssertionError(
+                        f"{label} {k} {p}: reverse {jac[k][i]} vs central "
+                        f"difference {fd[k][i]} (rel {rel:.3e})")
+        print(f"phase design gradients {label}: {card} metrics="
+              f"{len(vals)} x params=4 forward_s={t_fwd:.3f} (host "
+              f"{split['host_s']:.3f}, dynamics {split['dynamics_s']:.3f})"
+              f" backward_s={t_bwd:.3f} cpu_port_s={t_cpu:.3f} "
+              f"gj_launches forward={fwd_launches} backward="
+              f"{gk.launches_backward} values_rel_vs_cpu={worst_v:.3e} "
+              f"jacobian_rel_vs_cpu={worst_j:.3e} worst_rel_vs_central_"
+              f"differences={worst_fd:.3e}", flush=True)
+        for metric in ("rao_pitch_peak", "pitch_max_deg"):
+            gk.launches = gk.launches_backward = 0
+            t0 = time.perf_counter()
+            value, grad = design_value_and_grad(design, metric)
+            t_vg = time.perf_counter() - t0
+            if value != v0[metric]:
+                raise AssertionError(f"{label} {metric}: value {value!r} is "
+                                     f"not f(theta0)'s {v0[metric]!r}")
+            worst = 0.0
+            for i, p in enumerate(names):
+                ref = fd[metric][i]
+                rel = abs(grad[p] - ref) / max(abs(ref), 1e-12)
+                worst = max(worst, rel)
+                if rel > 5e-3:
+                    raise AssertionError(
+                        f"{label} {metric} {p}: adjoint {grad[p]} vs "
+                        f"central difference {ref}")
+            launches[f"{label}_{metric}"] = dict(
+                gj_solve=gk.launches, gj_solve_backward=gk.launches_backward)
+            print(f"phase design gradients {label} value_and_grad {metric}:"
+                  f" value_bit_identical=True total_s={t_vg:.3f} "
+                  f"polish_trips={tfp.stats['polish']} adjoint_trips="
+                  f"{tfp.stats['adjoint']} gj_launches forward="
+                  f"{gk.launches} backward={gk.launches_backward} "
+                  f"worst_rel_vs_central_differences={worst:.3e}",
+                  flush=True)
+    nan_lane_check(rt)
+    return launches
+
+
+def nan_lane_check(rt):
+    """The flagship's case operands on the card through the implicit
+    dynamics rule with lane 1's forcing poisoned: the lane quarantines
+    (nonfinite) and its gradient is exactly zero; the others finite."""
+    from raft_tpu_torch.grad import implicit_solve_dynamics
+    from raft_tpu_torch.model import make_case_phases
+
+    m = rt.Model(flagship(rt))
+    m.analyze_unloaded()
+    args, _ = m.prepare_case_inputs(verbose=False)
+    args = tuple(torch.as_tensor(a, device=CARD) for a in args)
+    prelude, _ = make_case_phases(m.w, m.k, m.depth, m.rho_water, m.g,
+                                  m.XiStart, m.nIter, torch.float64, CARD)
+    nodes = m.nodes.to(CARD, torch.float64)
+    u, Fr, Fi = prelude(nodes, args[0], args[1], args[5], args[6])
+    Fr = Fr.clone()
+    Fr[1, 0, 0] = float("nan")
+    Fr.requires_grad_(True)
+    w = torch.as_tensor(m.w, device=CARD)
+    xr, xi, rep = implicit_solve_dynamics(
+        nodes, u, w, float(m.dw), m.rho_water, args[3], args[4], args[2],
+        Fr, Fi, m.XiStart)
+    keep = torch.ones(xr.shape[0], dtype=torch.bool, device=CARD)
+    keep[1] = False
+    (g,) = torch.autograd.grad(xr[keep].sum() + xi[keep].sum()
+                               + torch.nan_to_num(xr[1]).sum(), Fr)
+    flags = rep.nonfinite.tolist()
+    if not (flags[1] and not any(flags[:1] + flags[2:])
+            and bool((g[1] == 0).all()) and bool(torch.isfinite(g).all())
+            and bool((g[0] != 0).any())):
+        raise AssertionError(f"NaN lane: flags {flags}, lane-1 gradient "
+                             f"zero {bool((g[1] == 0).all())}")
+    print(f"phase design gradients nan lane: lanes={len(flags)} nonfinite="
+          f"{[i for i, f in enumerate(flags) if f]} lane1_gradient_all_zero"
+          f"=True others_finite=True", flush=True)
+
+
+def batched_prep_phase(rt, card):
+    """Phase 21: 256 unbridled flagship designs (apply_design_scales over
+    16 drafts 0.9-1.1 x 16 column diameters 0.9-1.1, 12 cases x 128 w):
+    PrepFamily.prepare on the card against solo prep (a Model each;
+    raft_tpu's round-off bars: nodes 1e-9, args rtol 1e-6 / atol 1e-7 of
+    their scale), bits equal across block compositions (one lane alone,
+    the full block, a shuffled block), the geometry program on the card
+    against device="cpu" on the same machine, then run_design_sweep with
+    batched_prep=True against False (every result within 1e-10)."""
+    from raft_tpu_torch.batched_prep import PrepFamily, PrepFamilyError
+    from raft_tpu_torch.kernels import fused_block as fk
+    from raft_tpu_torch.kernels import gj_solve as gk
+    from raft_tpu_torch.parametric import apply_design_scales
+    from raft_tpu_torch.sweep import _prepare_design
+    from raft_tpu_torch.sweep_fused import run_design_sweep
+
+    base = flagship(rt)
+    designs = [apply_design_scales(base, [s, 1.0, c, 1.0])
+               for s in DRAFTS for c in DIAMETERS]
+    nd = len(designs)
+    fam = PrepFamily(base)
+    t0 = time.perf_counter()
+    lanes, idx = [], []
+    for i, d in enumerate(designs):
+        try:
+            lanes.append(fam.extract(d))
+            idx.append(i)
+        except PrepFamilyError:
+            pass
+    t_extract = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = fam.prepare(lanes)
+    t_batched = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solo = [_prepare_design(designs[i], None, lambda d, _p: d, None, CARD)
+            for i in idx]
+    t_solo = time.perf_counter() - t0
+    worst_n = worst_a = 0.0
+    for (_, n_b, a_b), (_, n_s, a_s) in zip(out, solo):
+        for f in n_s.__dataclass_fields__:
+            x, y = getattr(n_b, f), getattr(n_s, f)
+            if y.dtype == torch.bool:
+                if not torch.equal(x, y):
+                    raise AssertionError(f"batched prep mask {f} differs")
+                continue
+            worst_n = max(worst_n, (x - y).abs().max().item())
+            if not torch.allclose(x, y, rtol=1e-9, atol=1e-9):
+                raise AssertionError(f"batched prep nodes {f} drifted")
+        for x, y in zip(a_b, a_s):
+            scale = max(1.0, float(np.abs(y).max()) if y.size else 1.0)
+            worst_a = max(worst_a, float(np.abs(x - y).max()) / scale)
+            if not np.allclose(x, y, rtol=1e-6, atol=1e-7 * scale):
+                raise AssertionError("batched prep args drifted")
+
+    def same(a, b):
+        return (all(torch.equal(getattr(a[1], f), getattr(b[1], f))
+                    for f in a[1].__dataclass_fields__)
+                and all(np.array_equal(x, y) for x, y in zip(a[2], b[2])))
+
+    k = min(5, len(lanes) - 1)
+    order = [k, 0, len(lanes) - 1, 1]
+    if not (same(fam.prepare([lanes[k]])[0], out[k])
+            and all(same(o, out[j]) for j, o in zip(
+                order, fam.prepare([lanes[j] for j in order])))):
+        raise AssertionError("batched prep bits depend on the block")
+    geo_t = {}
+    for dev, blk in ((CARD, 8), ("cpu", 8), (CARD, 64)):
+        geo = PrepFamily(base, geometry_only=True, device=dev, block=blk)
+        glanes = [geo.extract(designs[i]) for i in idx]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        geo.prepare_geometry(glanes)
+        torch.cuda.synchronize()
+        geo_t[(dev, blk)] = time.perf_counter() - t0
+
+    # host prep and batched prep in turns (host, batched, batched, host)
+    runs = {False: [], True: []}
+    for flag in (False, True, True, False):
+        gk.launches = fk.launches = 0
+        t0 = time.perf_counter()
+        res = run_design_sweep(designs, verbose=False, batched_prep=flag)
+        runs[flag].append((res, time.perf_counter() - t0, gk.launches))
+    off, on = runs[False][0][0], runs[True][0][0]
+    worst = 0.0
+    # the final solve's relative residual is round-off either way: both
+    # below 1e-10, not held to each other
+    if not (on["residual"].max() < 1e-10 and off["residual"].max() < 1e-10):
+        raise AssertionError("design sweep residuals above 1e-10")
+    for key, v in off.items():
+        if key != "residual" and isinstance(v, np.ndarray) \
+                and v.dtype.kind in "fc":
+            d = float(np.abs(on[key] - v).max()) / max(
+                float(np.abs(v).max()), 1e-300)
+            worst = max(worst, d)
+            if d > 1e-10:
+                raise AssertionError(f"design sweep {key} batched vs host "
+                                     f"prep {d:.3e}")
+    print(f"phase batched prep: {card} designs={nd} family={len(lanes)} "
+          f"refused={nd - len(lanes)} block={fam.block} extract_s="
+          f"{t_extract:.3f} prepare_s={t_batched:.3f} ("
+          f"{1e3 * t_batched / len(lanes):.3f} ms/design) solo_prep_s="
+          f"{t_solo:.3f} ({1e3 * t_solo / len(lanes):.3f} ms/design) "
+          f"nodes_max_abs_diff={worst_n:.3e} args_max_rel_diff="
+          f"{worst_a:.3e} bits_across_blocks=True geometry_program "
+          f"card_s={geo_t[(CARD, 8)]:.3f} cpu_s={geo_t[('cpu', 8)]:.3f} "
+          f"card_block64_s={geo_t[(CARD, 64)]:.3f}", flush=True)
+    for flag in (False, True):
+        for turn, (res, total, gl) in enumerate(runs[flag]):
+            print(f"phase batched prep sweep batched_prep={flag} turn "
+                  f"{turn}: {card} designs={nd} total_s={total:.3f} "
+                  f"ms_per_design={1e3 * total / nd:.3f} host_prep_s="
+                  f"{res['timing']['host_prep_s']:.3f} prep_ms_per_design="
+                  f"{1e3 * res['timing']['host_prep_s'] / nd:.3f} "
+                  f"n_prep_batched={res['n_prep_batched']} n_prep_solo="
+                  f"{res['n_prep_solo']} gj_launches={gl} "
+                  f"max_rel_vs_host_prep={worst:.3e}", flush=True)
+    return dict(gj_solve=runs[True][0][2])
+
+
 # ------------------------------------------------------ BEM kernels
 
 def tile_inv_phase(bg, dtype, tol):
@@ -1450,6 +1851,10 @@ def main():
     ballast_phase(rt)
     l_sweep = headline_sweep_phase(rt, card)
     l_design = general_sweeps_phase(rt, card)
+    bwd64 = gj_backward_phase(gk, torch.float64)
+    gj_backward_phase(gk, torch.float32)
+    l_grad = design_gradients_phase(rt, card)
+    l_prep = batched_prep_phase(rt, card)
 
     ti32 = tile_inv_phase(bg, torch.float32, 1e-5)
     tile_inv_phase(bg, torch.float64, 1e-12)
@@ -1469,7 +1874,14 @@ def main():
              launches_bridled=l_bridled["legacy"]["gj_solve"],
              launches_sweep_waterfall=l_sweep["waterfall"]["gj_solve"],
              launches_sweep_fused=l_sweep["fused"]["gj_solve"],
-             launches_design_sweep=l_design["gj_solve"], **g64),
+             launches_design_sweep=l_design["gj_solve"],
+             launches_grad=l_grad["flagship"]["gj_solve"],
+             launches_backward_grad=l_grad["flagship"]["gj_solve_backward"],
+             launches_backward_grad_aero=l_grad["aero"]["gj_solve_backward"],
+             launches_backward_value_and_grad=l_grad[
+                 "flagship_rao_pitch_peak"]["gj_solve_backward"],
+             launches_batched_prep_sweep=l_prep["gj_solve"], **g64,
+             **bwd64),
         dict(name="fused_block", route="cuda",
              source="raft_tpu_torch/csrc/fused_block.cu",
              replaces="raft_tpu/pallas_kernels.py:428",

@@ -394,7 +394,7 @@ def _wind_components(Uinf, Omega, azimuth, r, precurve, presweep, precone,
     """Per-section velocity components in the blade-aligned frame
     (CCBlade windcomponents); every operand broadcasts."""
     sy, cy = torch.sin(yaw), torch.cos(yaw)
-    st, ct = torch.sin(tilt), torch.cos(tilt)
+    st, ct = _sin(tilt), _cos(tilt)
     sa, ca = torch.sin(azimuth), torch.cos(azimuth)
     sc, cc = np.sin(precone), np.cos(precone)
 
@@ -519,27 +519,31 @@ def _solve_phi(theta, cl_tab, cd_tab, aoa_grid, sigma_p, flow,
     shape = torch.broadcast_shapes(theta.shape, flow.vx_vy.shape)
     at = lambda v: torch.full(shape, v, dtype=_F64)  # noqa: E731
     eps = 1e-6
-    r_lo = resid(at(eps))
-    r_hi = resid(at(np.pi / 2))
-    primary = r_lo * r_hi <= 0
-    # fallback selection (Ning's bracket logic): the residual is
-    # discontinuous at phi=0 (momentum vs propeller-brake branch), so the
-    # negative bracket is tested with resid(-eps), NOT resid(+eps)
-    r_neg_lo = resid(at(-np.pi / 4))
-    r_neg_hi = resid(at(-eps))
-    use_neg = (~primary) & (r_neg_lo < 0) & (r_neg_hi > 0)
-    lo = torch.where(primary, at(eps),
-                     torch.where(use_neg, at(-np.pi / 4), at(np.pi / 2)))
-    hi = torch.where(primary, at(np.pi / 2),
-                     torch.where(use_neg, at(-eps), at(np.pi - eps)))
-    rl = torch.where(primary, r_lo, torch.where(use_neg, r_neg_lo, r_hi))
-    for _ in range(n_bisect):
-        mid = 0.5 * (lo + hi)
-        rm = resid(mid)
-        same = rl * rm > 0
-        lo = torch.where(same, mid, lo)
-        hi = torch.where(same, hi, mid)
-        rl = torch.where(same, rm, rl)
+    # the bracket and the bisection stay out of any autograd graph; the
+    # Newton steps below record it (as JAX differentiates its Newton steps)
+    with torch.no_grad():
+        r_lo = resid(at(eps))
+        r_hi = resid(at(np.pi / 2))
+        primary = r_lo * r_hi <= 0
+        # fallback selection (Ning's bracket logic): the residual is
+        # discontinuous at phi=0 (momentum vs propeller-brake branch), so
+        # the negative bracket is tested with resid(-eps), NOT resid(+eps)
+        r_neg_lo = resid(at(-np.pi / 4))
+        r_neg_hi = resid(at(-eps))
+        use_neg = (~primary) & (r_neg_lo < 0) & (r_neg_hi > 0)
+        lo = torch.where(primary, at(eps),
+                         torch.where(use_neg, at(-np.pi / 4), at(np.pi / 2)))
+        hi = torch.where(primary, at(np.pi / 2),
+                         torch.where(use_neg, at(-eps), at(np.pi - eps)))
+        rl = torch.where(primary, r_lo,
+                         torch.where(use_neg, r_neg_lo, r_hi))
+        for _ in range(n_bisect):
+            mid = 0.5 * (lo + hi)
+            rm = resid(mid)
+            same = rl * rm > 0
+            lo = torch.where(same, mid, lo)
+            hi = torch.where(same, hi, mid)
+            rl = torch.where(same, rm, rl)
     phi = 0.5 * (lo + hi)
     for _ in range(n_newton):
         phi = _newton_step(phi, resid)
@@ -558,7 +562,7 @@ def _sections(Uinf, Omega, pitch, tilt, yaw, geom, azimuths):
 
 
 def rotor_evaluate(Uinf, Omega, pitch, geom, polars, env, nSector=4,
-                   phi0=None, n_newton=2, derivs=False):
+                   phi0=None, n_newton=2, derivs=False, tilt_deriv=False):
     """Steady rotor loads (CCBlade.evaluate equivalent) of a batch of
     operating points.
 
@@ -578,6 +582,15 @@ def rotor_evaluate(Uinf, Omega, pitch, geom, polars, env, nSector=4,
     n_newton : Newton polish steps
     derivs : also return ``J [..., 10, 3]``, the derivatives of the
         outputs (T, Q, P, CP, CT, CQ, Y, Z, My, Mz) in (Uinf, Omega, pitch)
+    tilt_deriv : with ``derivs``, a fourth column of ``J``: the
+        derivative in the tilt (``geom["tilt"]``, shaft tilt plus the
+        platform's mean pitch)
+
+    Reverse mode: the bracket and the bisection run outside autograd; the
+    Newton polish, the implicit rule and the load integrals are tensor
+    ops, so ``vals`` and ``J`` carry a graph to any operand that requires
+    grad (the design gradients take it in ``geom["tilt"]``), the JAX
+    package's ``jacfwd`` through its Newton steps.
 
     Returns dict with the hub loads T, Y, Z, Q, My, Mz, power P, their
     coefficients CT, CY, CZ, CQ, CMy, CMz, CP, each ``[...]``, the solved
@@ -610,15 +623,18 @@ def rotor_evaluate(Uinf, Omega, pitch, geom, polars, env, nSector=4,
                          n_newton=n_newton - 1 if derivs and n_newton else
                          n_newton)
 
-    dphi = torch.zeros((3,) + phi.shape, dtype=_F64)
+    nd = 4 if tilt_deriv else 3
+    dphi = torch.zeros((nd,) + phi.shape, dtype=_F64)
     if derivs and (n_newton or guided):
-        # R_phi and R_x from one pass in 4 directions (phi, U, Omega,
-        # pitch); dphi/dx = -R_x / R_phi.  The bracketed path takes its
-        # last Newton step from the same pass; the guided path
+        # R_phi and R_x from one pass in 4 (5) directions (phi, U, Omega,
+        # pitch[, tilt]); dphi/dx = -R_x / R_phi.  The bracketed path
+        # takes its last Newton step from the same pass; the guided path
         # linearizes at the root it reached
-        th, vx, vy = _sections(_seed(Uinf, 4, 1), _seed(Omega, 4, 2),
-                               _seed(pitch, 4, 3), tilt, yaw, geom, azimuths)
-        res = _phi_resid(_seed(phi, 4, 0), th, *tabs,
+        D = nd + 1
+        th, vx, vy = _sections(
+            _seed(Uinf, D, 1), _seed(Omega, D, 2), _seed(pitch, D, 3),
+            _seed(tilt, D, 4) if tilt_deriv else tilt, yaw, geom, azimuths)
+        res = _phi_resid(_seed(phi, D, 0), th, *tabs,
                          _Inflow(B, r, Rhub, Rtip, vx, vy))
         dres = res.full_t()
         if not guided:
@@ -636,8 +652,8 @@ def rotor_evaluate(Uinf, Omega, pitch, geom, polars, env, nSector=4,
     rho = env["rho"]
     A = np.pi * Rtip ** 2
 
-    def loads(p, U, Om, pt):
-        th, vx, vy = _sections(U, Om, pt, tilt, yaw, geom, azimuths)
+    def loads(p, U, Om, pt, tl):
+        th, vx, vy = _sections(U, Om, pt, tl, yaw, geom, azimuths)
         alpha = (p - th) * _RAD2DEG
         cl, cd = _interp(alpha, aoa_grid, cl_tab, cd_tab)
         # r_fin: the Ning residual at the returned root
@@ -676,11 +692,12 @@ def rotor_evaluate(Uinf, Omega, pitch, geom, polars, env, nSector=4,
         return vals, _val(extra), _val(r_fin).abs().flatten(-2).amax(-1)
 
     if derivs:
-        vals, extra, rfin = loads(_Dual(phi, dphi), _seed(Uinf, 3, 0),
-                                  _seed(Omega, 3, 1), _seed(pitch, 3, 2))
+        vals, extra, rfin = loads(
+            _Dual(phi, dphi), _seed(Uinf, nd, 0), _seed(Omega, nd, 1),
+            _seed(pitch, nd, 2), _seed(tilt, nd, 3) if tilt_deriv else tilt)
         dvals, vals = vals.full_t(), vals.v
     else:
-        vals, extra, rfin = loads(phi, Uinf, Omega, pitch)
+        vals, extra, rfin = loads(phi, Uinf, Omega, pitch, tilt)
     out = {k: vals[..., j] for j, k in enumerate(
         ("T", "Q", "P", "CP", "CT", "CQ", "Y", "Z", "My", "Mz"))}
     out.update({k: extra[..., j] for j, k in enumerate(

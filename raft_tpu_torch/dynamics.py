@@ -18,6 +18,12 @@
   sets ``nonfinite`` (the NaN quarantine); the final re-solve goes
   through the escalating recovery ladder, which fills the
   :class:`raft_tpu_torch.health.SolveReport`.
+- Reverse mode: every solve is a :class:`GaussSolve`, whose backward is
+  one more elimination (the kernel on the card) of the transposed
+  systems.  The fixed point, the ladder and its tier selection are
+  plain tensor ops, so a solve whose operands require grad records a
+  graph through them with the same forward bits; the condition
+  estimate's pivots are detached (they only choose a tier).
 """
 
 import torch
@@ -38,22 +44,87 @@ from raft_tpu_torch.precision import mp_round
 TOL = 0.01
 
 
-def _eliminate(M):
+def _eliminate(M, backward=False):
     """gj_solve over any leading batch shape of ``M [..., n, m]``."""
     shape = M.shape
-    out, piv = gj_solve(M.reshape((-1,) + shape[-2:]).contiguous())
+    out, piv = gj_solve(M.reshape((-1,) + shape[-2:]).contiguous(),
+                        backward=backward)
     return out.reshape(shape), piv.reshape(shape[:-1])
+
+
+class GaussSolve(torch.autograd.Function):
+    """``x = A^-1 b`` by Gauss–Jordan elimination with partial pivoting
+    (the kernel on the card, its plain version on the CPU).
+
+    The adjoint of ``x = A^-1 b`` is ``lam = A^-T g``, one more
+    elimination, of the transposed systems ``[A^T | g]`` (counted in
+    ``gj_solve.launches_backward`` on the card); then ``A_bar = -lam x^T``
+    and ``b_bar = lam``, exact zeros for a system whose cotangent is
+    zero.  Once differentiable: the backward is no graph.
+    """
+
+    @staticmethod
+    def forward(A, b):
+        n = A.shape[-1]
+        M, _ = _eliminate(torch.cat([A, b], dim=-1))
+        return M[..., n:]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        A, x = ctx.saved_tensors
+        n = A.shape[-1]
+        M, _ = _eliminate(torch.cat([A.transpose(-1, -2), g], dim=-1),
+                          backward=True)
+        # a system whose cotangent is zero (a tier the ladder did not
+        # pick) gets exact zeros, whatever its solution: 0 x inf is NaN
+        zero = (g == 0).flatten(-2).all(-1)[..., None, None]
+        lam = torch.where(zero, torch.zeros_like(g), M[..., n:])
+        gA = None
+        if ctx.needs_input_grad[0]:
+            gA = torch.where(zero, torch.zeros_like(A),
+                             -lam @ x.transpose(-1, -2))
+        return gA, lam if ctx.needs_input_grad[1] else None
+
+
+class _Residual(torch.autograd.Function):
+    """``b - A @ x`` whose backward gives exact zeros to a system whose
+    cotangent is zero, whatever its ``x`` (a ladder tier that was not
+    picked can hold a non-finite iterate, and 0 x inf is NaN)."""
+
+    @staticmethod
+    def forward(A, x, b):
+        return b - A @ x
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], inputs[1])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        A, x = ctx.saved_tensors
+        zero = (g == 0).flatten(-2).all(-1)[..., None, None]
+        gA = gx = None
+        if ctx.needs_input_grad[0]:
+            gA = torch.where(zero, torch.zeros_like(A),
+                             -g @ x.transpose(-1, -2))
+        if ctx.needs_input_grad[1]:
+            gx = -A.transpose(-1, -2) @ g
+        return gA, gx, g if ctx.needs_input_grad[2] else None
 
 
 def gauss_solve(A, b):
     """Batched dense solve by Gauss–Jordan elimination with partial
-    pivoting.
+    pivoting, reverse-differentiable through :class:`GaussSolve`.
 
     A : [..., n, n];  b : [..., n, nrhs] -> x : [..., n, nrhs]
     """
-    n = A.shape[-1]
-    M, _ = _eliminate(torch.cat([A, b], dim=-1))
-    return M[..., n:]
+    return GaussSolve.apply(A, b)
 
 
 def gj_cond_estimate(A):
@@ -61,6 +132,7 @@ def gj_cond_estimate(A):
     Gauss–Jordan elimination of the ROW-EQUILIBRATED matrix (scale
     invariant; a (near-)singular A drives it toward +inf).  Non-finite
     inputs report +inf."""
+    A = A.detach()
     d = torch.amax(torch.abs(A), dim=-1, keepdim=True)
     d = torch.where(d > 0, d, torch.ones_like(d))
     _, piv = _eliminate(torch.cat([A / d, torch.zeros_like(A[..., :1])],
@@ -93,7 +165,7 @@ def solve_complex_6x6(Zr, Zi, Fr, Fi, refine=1):
     A, b = _block_system(Zr, Zi, Fr, Fi)
     x = gauss_solve(A, b)
     for _ in range(refine):
-        x = x + gauss_solve(A, b - A @ x)
+        x = x + gauss_solve(A, _Residual.apply(A, x, b))
     x = x[..., 0]
     return x[..., :6], x[..., 6:]
 
@@ -139,14 +211,14 @@ def solve_complex_6x6_ladder(Zr, Zi, Fr, Fi, refine=1, resid_tol=None,
     # tier 0: the exact baseline path of solve_complex_6x6
     x0 = gauss_solve(A, b)
     for _ in range(refine):
-        x0 = x0 + gauss_solve(A, b - A @ x0)
+        x0 = x0 + gauss_solve(A, _Residual.apply(A, x0, b))
     r0 = rel_resid(x0)
     need1 = (r0 > resid_tol) | ~finite(x0)
 
     # tier 1: extra refinement (always computed, selected where needed)
     x1 = x0
     for _ in range(extra_refine):
-        x1 = x1 + gauss_solve(A, b - A @ x1)
+        x1 = x1 + gauss_solve(A, _Residual.apply(A, x1, b))
     xa = torch.where(need1[..., None, None], x1, x0)
     ra = rel_resid(xa)
 

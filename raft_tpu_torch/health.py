@@ -123,6 +123,33 @@ def log_report(rep, label="case", log=None, limit=10):
     return int(len(bad))
 
 
+def quarantine_cotangents(cts, nonfinite):
+    """Adjoint mirror of the NaN-quarantine freeze (the JAX package's
+    ``health.quarantine_cotangents``): every floating cotangent of a
+    lane whose forward solve quarantined becomes exactly 0.0, so one bad
+    lane cannot poison a batched gradient; callers detect it by the
+    report's ``nonfinite`` flag, as in the forward pass.
+
+    cts : a tensor, or a tuple / list / dict of them (None entries and
+        integer or bool tensors pass through); ``nonfinite`` [lanes] is
+        the per-lane flag, its axes leading each cotangent's.
+    Returns the same structure with the quarantined lanes zeroed — by a
+    select, not a product, since a quarantined lane's cotangent may be
+    NaN and NaN * 0 is NaN.
+    """
+    if isinstance(cts, (tuple, list)):
+        return type(cts)(quarantine_cotangents(c, nonfinite) for c in cts)
+    if isinstance(cts, dict):
+        return {k: quarantine_cotangents(c, nonfinite)
+                for k, c in cts.items()}
+    if not isinstance(cts, torch.Tensor) or not (
+            cts.is_floating_point() or cts.is_complex()):
+        return cts
+    flag = torch.as_tensor(nonfinite, device=cts.device)
+    flag = flag.reshape(flag.shape + (1,) * max(cts.dim() - flag.dim(), 0))
+    return torch.where(flag, torch.zeros_like(cts), cts)
+
+
 def inject_nonfinite_excitation(args, value=float("nan")):
     """Return a COPY of the prepared case-input 7-tuple
     (``Model.prepare_case_inputs`` order) with the wave-excitation

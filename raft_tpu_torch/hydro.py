@@ -63,13 +63,14 @@ def _sum_force_3to6(f3, r, mask):
 
 def added_mass_morison(nodes, rho):
     """Constant Morison added-mass matrix A_hydro_morison[6, 6]
-    (reference raft/raft_fowt.py:541-545 side + :570-573 end terms)."""
-    side = rho * nodes.v_side[:, None, None] * (
-        nodes.Ca_p1[:, None, None] * nodes.p1Mat
-        + nodes.Ca_p2[:, None, None] * nodes.p2Mat
+    (reference raft/raft_fowt.py:541-545 side + :570-573 end terms); a
+    node bundle with leading lane axes ([L, N, ...]) gives [L, 6, 6]."""
+    side = rho * nodes.v_side[..., None, None] * (
+        nodes.Ca_p1[..., None, None] * nodes.p1Mat
+        + nodes.Ca_p2[..., None, None] * nodes.p2Mat
     )
-    end = rho * nodes.v_end[:, None, None] * nodes.Ca_End[:, None, None] \
-        * nodes.qMat
+    end = rho * nodes.v_end[..., None, None] \
+        * nodes.Ca_End[..., None, None] * nodes.qMat
     return _sum_matrix_3to6(side + end, nodes.r, nodes.strip_mask)
 
 

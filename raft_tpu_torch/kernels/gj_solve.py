@@ -16,7 +16,10 @@ every step, ``[B, n]``.  It replaces the TPU kernel
 - A tensor on the CPU goes to :func:`gj_solve_reference`, the plain
   version of the same steps (the mirror of ``raft_tpu.dynamics._gj_step``).
 
-``launches`` counts the kernel's launches in this process.
+``launches`` counts the kernel's launches in this process and
+``launches_backward`` those made for a backward pass
+(:class:`raft_tpu_torch.dynamics.GaussSolve`: the transposed systems
+``[A^T | g]`` go through the same kernel).
 """
 
 import ctypes
@@ -33,6 +36,7 @@ MAX_N = 16
 MAX_M = 32
 
 launches = 0
+launches_backward = 0
 _lib = None
 _INT = ctypes.c_int
 
@@ -89,11 +93,12 @@ def _check(M):
             f"n={n}, m={m}")
 
 
-def gj_solve(M):
+def gj_solve(M, backward=False):
     """Eliminate every system of ``M [B, n, m]``; returns
     ``(M_out [B, n, m], |pivot| [B, n])``.  CPU tensors take the plain
-    version, CUDA tensors the kernel."""
-    global launches
+    version, CUDA tensors the kernel; ``backward`` counts the launch in
+    ``launches_backward`` instead of ``launches``."""
+    global launches, launches_backward
     _check(M)
     if M.device.type == "cpu":
         return gj_solve_reference(M)
@@ -112,7 +117,10 @@ def gj_solve(M):
                 stream)
     if rc != 0:
         raise RuntimeError(f"gj_solve kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if backward:
+        launches_backward += 1
+    else:
+        launches += 1
     return out, piv
 
 

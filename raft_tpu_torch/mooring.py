@@ -549,11 +549,12 @@ class _CatenaryRoot(torch.autograd.Function):
     """Log fairlead tensions ``p [..., 2]`` solving the profile equations
     of composite lines spanning (XF, ZF), by :func:`_catenary_newton`.
 
-    The reverse-mode derivative with respect to XF and ZF is implicit:
-    the residual is ``(x(p) - XF, z(p) - ZF)``, so ``dp = J_p^{-1} (dXF,
-    dZF)`` at the converged point, and the gradient is one transposed
-    2x2 solve there.  The line properties are constants (no derivative
-    flows to them).
+    The reverse-mode derivative is implicit: with the residual
+    ``r(p; XF, ZF, L, EA, w, Wp, cb) = (x(p) - XF, z(p) - ZF)``, the
+    cotangent of each operand is ``-(dr/d.)^T J_p^-T g`` at the converged
+    point: one transposed 2x2 solve there, and one reverse pass of the
+    residual for the partials in the operands (the line properties too:
+    a design knob scales ``L``).
     """
 
     @staticmethod
@@ -567,12 +568,19 @@ class _CatenaryRoot(torch.autograd.Function):
         ctx.ground = inputs[7]
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, gp):
-        XF, ZF, L, EA, w, Wp, cb, p = ctx.saved_tensors
-        _, J = _catenary_resid_jac(p, XF, ZF,
-                                   _Lines(L, EA, w, Wp, cb, ctx.ground))
-        g = _solve2(J.transpose(-1, -2), gp)
-        return (g[..., 0], g[..., 1]) + (None,) * 8
+        *ops, p = ctx.saved_tensors
+        need = ctx.needs_input_grad[:7]
+        with torch.enable_grad():
+            ops = [t.detach().requires_grad_(n) for t, n in zip(ops, need)]
+            r, J = _catenary_resid_jac(p, ops[0], ops[1],
+                                       _Lines(*ops[2:], ctx.ground))
+        lam = _solve2(J.detach().transpose(-1, -2), gp)
+        wrt = [t for t, n in zip(ops, need) if n]
+        grads = iter(torch.autograd.grad(r, wrt, grad_outputs=-lam,
+                                         allow_unused=True))
+        return tuple(next(grads) if n else None for n in need) + (None,) * 3
 
 
 def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11,
@@ -612,11 +620,7 @@ def catenary_solve(XF, ZF, L, EA, w, Wp=None, cb=0.0, iters=60, tol=1e-11,
     # the solve finite; HF then comes out ~0
     XF = torch.maximum(XF_span, 1e-6 * L_tot)
     d = torch.sqrt(XF**2 + ZF**2)
-    if tangents:
-        p = _catenary_newton(XF, ZF, L, EA, w, Wp, cb, iters, tol, ground)
-    else:
-        p = _CatenaryRoot.apply(XF, ZF, L, EA, w, Wp, cb, ground, iters,
-                                tol)
+    p = _CatenaryRoot.apply(XF, ZF, L, EA, w, Wp, cb, ground, iters, tol)
     HF, VF = torch.exp(p[..., 0]), torch.exp(p[..., 1])
     # fully-slack regime (L > XF + ZF): a vertical hang of length ZF with
     # the excess on the seabed — H = 0 and V = the hanging weight; the
@@ -1206,7 +1210,7 @@ def tension_jacobian(r6, anchors, rFair, L, EA, w, Wp=None, cb=None,
 
 def case_mooring(f6_ext, m, v, rCG, rM, AWP, anchors, rFair, L, EA, w,
                  Wp=None, cb=None, bridles=None, rho=1025.0, g=9.81,
-                 yawstiff=0.0):
+                 yawstiff=0.0, equilibrium_fn=None):
     """Per-case mooring analysis for mean loads f6_ext [..., nc, 6]: the
     equilibrium pose plus every linearized quantity the dynamics consumes
     (reference raft/raft_model.py:332-392 calcMooringAndOffsets), the
@@ -1219,11 +1223,16 @@ def case_mooring(f6_ext, m, v, rCG, rM, AWP, anchors, rFair, L, EA, w,
     ``moor_resid`` is the worst bridle-junction residual at the pose (0
     without bridles), surfaced so an iteration-capped junction solve
     cannot feed the linearization silently.
+
+    ``equilibrium_fn`` replaces :func:`solve_equilibrium` with a function
+    of its signature: the gradient path passes the implicit rule
+    (raft_tpu_torch/grad/fixed_point.py), whose forward is this default.
     """
     Wp, cb = _defaults(L, Wp, cb)
     lines = (anchors, rFair, L, EA, w, Wp, cb)
-    r6 = solve_equilibrium(f6_ext, (m, v, rCG, rM, AWP), *lines,
-                           bridles=bridles, rho=rho, g=g)
+    solve = solve_equilibrium if equilibrium_fn is None else equilibrium_fn
+    r6 = solve(f6_ext, (m, v, rCG, rM, AWP), *lines, bridles=bridles,
+               rho=rho, g=g)
     F_moor, T_moor, resid, df6, J_moor = _system(r6, *lines, bridles, True)
     yaw = torch.zeros(6, 6, dtype=df6.dtype)
     yaw[5, 5] = yawstiff

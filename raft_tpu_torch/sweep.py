@@ -42,6 +42,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from raft_tpu_torch.batched_prep import PrepFamily, PrepFamilyError
 from raft_tpu_torch.geometry import HydroNodes
 from raft_tpu_torch.health import FailedPoint, SolveReport
 from raft_tpu_torch.model import Model, _not_ported, make_case_dynamics
@@ -107,12 +108,37 @@ def _prepare_design(base_design, point, apply_point, precision, device):
 
 
 def _prepare_chunk(base_design, chunk_pts, apply_point, precision, device,
-                   k0):
-    """Host prep of one chunk, point by point; a point whose prep raises
-    is quarantined.  Returns (preps, failed)."""
-    preps = [None] * len(chunk_pts)
+                   k0, family=None):
+    """Host prep of one chunk: through the batched prep of ``family``
+    when given (raft_tpu_torch/batched_prep.py), point by point
+    otherwise and for a design the family refuses
+    (:class:`PrepFamilyError`); a point whose solo prep raises is
+    quarantined.  Returns (preps, failed, n_batched, n_solo)."""
+    n_real = len(chunk_pts)
+    preps = [None] * n_real
     failed = []
-    for j, pt in enumerate(chunk_pts):
+    solo = list(range(n_real))
+    if family is not None:
+        lanes, lane_idx, solo = [], [], []
+        for j, pt in enumerate(chunk_pts):
+            try:
+                design = copy.deepcopy(base_design)
+                design = apply_point(design, pt) or design
+                lanes.append(family.extract(design))
+                lane_idx.append(j)
+            except Exception as e:  # noqa: BLE001 — the family refuses it,
+                # or the design dict is bad: solo prep below decides
+                # between a solo solve and the quarantine
+                if not isinstance(e, PrepFamilyError):
+                    logger.warning(
+                        "sweep point %d: batched prep extract raised "
+                        "(%s: %s); solo prep", k0 + j, type(e).__name__, e)
+                solo.append(j)
+        # a fault of the batched program raises: no fallback
+        for j, triple in zip(lane_idx, family.prepare(lanes)):
+            preps[j] = triple
+    for j in solo:
+        pt = chunk_pts[j]
         try:
             preps[j] = _prepare_design(base_design, pt, apply_point,
                                        precision, device)
@@ -121,7 +147,7 @@ def _prepare_chunk(base_design, chunk_pts, apply_point, precision, device,
             failed.append((k0 + j, pt, msg))
             logger.warning("sweep point %d quarantined: design prep "
                            "raised (%s)", k0 + j, msg)
-    return preps, failed
+    return preps, failed, n_real - len(solo), len(solo)
 
 
 def default_collect(model, point, Xi):
@@ -237,7 +263,7 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
               out_dir=None, collect=default_collect, verbose=True,
               retry_nonconverged=True, overlap=True, via_buckets=None,
               tracer=None, fixed_point="legacy", block_iters=None,
-              chunk=8):
+              chunk=8, batched_prep=False):
     """Run the analysis over all design ``points`` in chunks of ``chunk``
     designs, each chunk one batched dynamics solve on the device, with
     per-chunk checkpointing under ``out_dir``.
@@ -276,6 +302,12 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
         (``legacy``, ``waterfall`` or ``fused``, as in
         ``Model.analyze_cases``); the retry always takes the legacy solve.
     chunk : designs per batched solve.
+    batched_prep : prepare the designs through one
+        :class:`raft_tpu_torch.batched_prep.PrepFamily` of the base
+        design (lane blocks on the working device) instead of one Model
+        each; a design the family refuses (:class:`PrepFamilyError`, as
+        does a family whose base design has wind cases) is prepared
+        solo.  The JAX package switches it by an environment variable.
 
     Returns
     -------
@@ -284,6 +316,8 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
     ``collect`` metrics and ``param_*`` columns, and the fault-isolation
     record ``failed`` (list of {index, point, error}) with
     ``failed_mask``.  Failed points' rows are NaN (flags False/0).
+    ``n_prep_batched`` and ``n_prep_solo`` count the designs each prep
+    path took (checkpointed chunks count in neither).
     """
     if via_buckets:
         raise _not_ported("sweeps through the serving buckets "
@@ -299,6 +333,14 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
     pool = ThreadPoolExecutor(max_workers=1) if background else None
     records = {}  # chunk index -> dict(res | None, failed, n_real, k0)
     prep_wall_s = 0.0
+    n_batched = n_solo = 0
+    family = None
+    if batched_prep:
+        try:
+            family = PrepFamily(base_design, precision=precision, device=dev)
+        except PrepFamilyError as e:
+            logger.warning("run_sweep: no batched prep family (%s); solo "
+                           "prep", e)
 
     def _write_ck(ck_path, res, failed):
         if not ck_path:
@@ -413,10 +455,13 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
             t_prep = time.perf_counter()
             span = tracer.begin("prep", backend="cpu", chunk=k) \
                 if tracer is not None else None
-            preps, failed = _prepare_chunk(base_design, chunk_pts,
-                                           apply_point, precision, dev, k0)
+            preps, failed, nb, ns = _prepare_chunk(
+                base_design, chunk_pts, apply_point, precision, dev, k0,
+                family)
+            n_batched += nb
+            n_solo += ns
             if span is not None:
-                tracer.end(span, designs=n_real)
+                tracer.end(span, designs=n_real, batched_designs=nb)
             prep_wall_s += time.perf_counter() - t_prep
 
             ok = [j for j in range(n_real) if preps[j] is not None]
@@ -502,6 +547,8 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
         mask[i] = True
     out["failed_mask"] = mask
     out["prep_wall_s"] = float(prep_wall_s)
+    out["n_prep_batched"] = n_batched
+    out["n_prep_solo"] = n_solo
     return out
 
 

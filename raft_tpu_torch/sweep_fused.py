@@ -27,8 +27,10 @@ use the sweep's structure instead:
 Host work runs float64 on one CPU thread (``host_threads``); on the
 card, the wind-case chunks' dynamics run on a worker thread while the
 host computes the next chunk's rotor loads (the case-axis overlap).
-More than one device, the serving buckets (``via_buckets``) and the
-batched traced design prep raise ``NotImplementedError`` naming their
+``run_design_sweep(batched_prep=True)`` prepares the designs' geometry,
+statics and added mass in lane blocks on the card
+(raft_tpu_torch/batched_prep.py).  More than one device and the serving
+buckets (``via_buckets``) raise ``NotImplementedError`` naming their
 ROADMAP.md step.
 """
 
@@ -40,6 +42,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from raft_tpu_torch.batched_prep import PrepFamily, PrepFamilyError
 from raft_tpu_torch.geometry import pack_nodes, process_members
 from raft_tpu_torch.hydro import added_mass_morison
 from raft_tpu_torch.io.schema import cases_as_dicts
@@ -639,13 +642,10 @@ def _design_mooring(F_prp, nc, mass, V, rCG, rM, AWP, moor, bridles, model0):
     return tuple(o.detach().numpy()[:, inv].copy() for o in out)
 
 
-def _check_sweep_args(device, via_buckets, batched_prep, fixed_point):
+def _check_sweep_args(device, via_buckets, fixed_point):
     if via_buckets:
         raise _not_ported("sweeps through the serving buckets "
                          "(via_buckets)", 12)
-    if batched_prep:
-        raise _not_ported("the batched traced design prep (batched_prep.py, "
-                         "parametric.py)", 8)
     check_mode(fixed_point)
     return sweep_device(device)
 
@@ -684,14 +684,23 @@ def run_draft_ballast_sweep(
         its chrome trace there.
     fixed_point, block_iters : the first solve's engine (``legacy``,
         ``waterfall`` or ``fused``); the bounded retry is legacy.
-    via_buckets, batched_prep : True raises ``NotImplementedError``
-        (ROADMAP.md, queue 1 steps 12 and 8).
+    via_buckets : True raises ``NotImplementedError`` (ROADMAP.md,
+        queue 1 step 12).
+    batched_prep : True raises ``NotImplementedError``: this sweep
+        prepares one variant per draft, and has no batched prep in the
+        JAX package either.
 
     Returns a dict of metrics [nD, nB, ...], the timing breakdown with the
     overlap measures, the rotor accounting, the dispatch stats and the
     mooring/statics intermediates.
     """
-    dev = _check_sweep_args(device, via_buckets, batched_prep, fixed_point)
+    if batched_prep:
+        raise NotImplementedError(
+            "run_draft_ballast_sweep has no batched design prep: it prepares "
+            "one variant per draft, and the JAX package's batched prep "
+            "serves run_design_sweep and run_sweep only (ROADMAP.md, queue "
+            "3 item 11)")
+    dev = _check_sweep_args(device, via_buckets, fixed_point)
     t_start = time.perf_counter()
     tracer = tracer or Tracer("fused_sweep")
     model0 = Model(base_design, precision=precision, device=dev)
@@ -909,6 +918,46 @@ def _prepare_design_point(design, rho_water, g, need_trim):
     return v
 
 
+def _batched_prep_points(designs, precision, device, solo_prep):
+    """The batched form of the design sweep's host prep: the geometry,
+    statics and added mass of every design that joins the family of
+    ``designs[0]`` in lane blocks on ``device``, the others through
+    ``solo_prep``.  Returns (prepped, n_batched), ``prepped`` shaped as
+    the host loop's.  A fault of the batched program raises (no
+    fallback)."""
+    try:
+        family = PrepFamily(designs[0], precision=precision,
+                            geometry_only=True, device=device)
+    except PrepFamilyError as e:
+        logger.warning("design sweep: no batched prep family (%s); host "
+                       "prep", e)
+        with host_threads():
+            return [solo_prep(d) for d in designs], 0
+    prepped = [None] * len(designs)
+    lanes, lane_idx = [], []
+    with host_threads():
+        for i, d in enumerate(designs):
+            try:
+                lanes.append(family.extract(d))
+                lane_idx.append(i)
+            except Exception as e:  # noqa: BLE001 — the family refuses
+                # it, or the design dict is bad: the host prep decides
+                # between a solo prep and the quarantine
+                if not isinstance(e, PrepFamilyError):
+                    logger.warning(
+                        "design %d: batched prep extract raised (%s: %s); "
+                        "host prep", i, type(e).__name__, e)
+                prepped[i] = solo_prep(d)
+    if lanes:
+        geoms = family.prepare_geometry(lanes)
+        for i, lane, (nodes, S1, A) in zip(lane_idx, lanes, geoms):
+            ms = lane["ms"]
+            prepped[i] = (_GeomVariant(
+                nodes=nodes, moor=_mooring_arrays(ms),
+                bridles=_bridle_tuple(ms), A_morison=A, S1=S1), None)
+    return prepped, len(lanes)
+
+
 def run_design_sweep(
     designs, precision=None, group=16, return_xi=False,
     trim_ballast_density=False, verbose=True, device=None,
@@ -927,13 +976,21 @@ def run_design_sweep(
         per design (the affine equivalent of
         ``Model.adjust_ballast_density``), reported as ``delta_rho``.
     device, overlap, tracer, trace_path, fixed_point, block_iters,
-    via_buckets, batched_prep : as in
-        :func:`run_draft_ballast_sweep`.
+    via_buckets : as in :func:`run_draft_ballast_sweep`.
+    batched_prep : the geometry, statics and added mass of the designs
+        through one :class:`raft_tpu_torch.batched_prep.PrepFamily` of
+        ``designs[0]`` (lane blocks on the working device) instead of a
+        host prep each; a design the family refuses
+        (:class:`PrepFamilyError`) is prepared on the host.  Not with
+        ``trim_ballast_density``, whose statics at zero and unit fill
+        only the host prep stages (as in the JAX package).
 
     All designs share the cases table and frequency settings of
-    ``designs[0]``.  Returns a dict of per-design arrays [nd, ...].
+    ``designs[0]``.  Returns a dict of per-design arrays [nd, ...], with
+    ``n_prep_batched`` and ``n_prep_solo``, the designs each prep path
+    took.
     """
-    dev = _check_sweep_args(device, via_buckets, batched_prep, fixed_point)
+    dev = _check_sweep_args(device, via_buckets, fixed_point)
     t_start = time.perf_counter()
     tracer = tracer or Tracer("design_sweep")
     model0 = Model(designs[0], precision=precision, device=dev)
@@ -956,8 +1013,13 @@ def run_design_sweep(
         except Exception as e:  # noqa: BLE001 — quarantine any prep fault
             return None, f"{type(e).__name__}: {e}"
 
-    with host_threads():
-        prepped = [_safe_prep(d) for d in designs]
+    n_prep_batched = 0
+    if batched_prep and not trim_ballast_density:
+        prepped, n_prep_batched = _batched_prep_points(designs, precision,
+                                                       dev, _safe_prep)
+    else:
+        with host_threads():
+            prepped = [_safe_prep(d) for d in designs]
     failed_pts = [(i, msg) for i, (v, msg) in enumerate(prepped)
                   if v is None]
     for i, msg in failed_pts:
@@ -974,7 +1036,8 @@ def run_design_sweep(
                                for v in variants]) for i in range(7))
     bridles_all = _stack_bridles(variants)
     t_host = time.perf_counter() - t0
-    tracer.add("host_prep", t_host, backend="cpu")
+    tracer.add("host_prep", t_host, backend="cpu",
+               batched_designs=n_prep_batched)
 
     # ---- optional closed-form ballast-density trim ----
     rho_w, grav = model0.rho_water, model0.g
@@ -1084,6 +1147,8 @@ def run_design_sweep(
         "dispatch_stats": stats,
         "rotor_telemetry": rotor_tel,
         "tracer": tracer,
+        "n_prep_batched": n_prep_batched,
+        "n_prep_solo": nd - n_prep_batched,
         "timing": {"host_prep_s": t_host, "aero_first_s": t_aero1,
                    "mooring_s": t_moor, **eng_timing,
                    "total_s": time.perf_counter() - t_start},

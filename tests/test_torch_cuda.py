@@ -1,9 +1,10 @@
-"""The CUDA kernels on the card — Gauss–Jordan, the fused fixed-point
-block (one thread-block cluster per lane), and the BEM solve's pivot-tile
-inverse and matrix products —
-(marked ``cuda``; each test skips with its reason where there is no
-card).  This file imports neither jax nor raft_tpu, so it runs on a
-machine with only the port's dependencies:
+"""The CUDA kernels on the card — Gauss–Jordan (and its backward), the
+fused fixed-point block (one thread-block cluster per lane), and the BEM
+solve's pivot-tile inverse and matrix products — with the design
+gradients and the batched design prep on the card (marked ``cuda``;
+each test skips with its reason where there is no card).  This file
+imports neither jax nor raft_tpu, so it runs on a machine with only the
+port's dependencies:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -557,3 +558,91 @@ def test_draft_ballast_sweep_on_the_card_matches_the_cpu(cuda):
             ref = np.abs(cpu[key]).max()
             assert np.abs(card[key] - cpu[key]).max() <= 1e-8 * ref, \
                 (mode, key)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gauss_solve_backward_matches_plain_version(cuda, dtype):
+    """GaussSolve's backward on the card, at the main path's [1536, 12,
+    13]: one backward launch of the kernel on [A^T | g], and A_bar, b_bar
+    with the bits of the plain version's elimination of the same
+    transposed systems on the card."""
+    from raft_tpu_torch.dynamics import GaussSolve
+
+    g = torch.Generator().manual_seed(8)
+    A = torch.randn(1536, 12, 12, generator=g, dtype=torch.float64) \
+        + 12 * torch.eye(12, dtype=torch.float64)
+    b = torch.randn(1536, 12, 1, generator=g, dtype=torch.float64)
+    c = torch.randn(1536, 12, 1, generator=g, dtype=torch.float64)
+    A, b, c = (t.to(cuda, dtype) for t in (A, b, c))
+    A.requires_grad_(True)
+    b.requires_grad_(True)
+    x = GaussSolve.apply(A, b)
+    before = (gk.launches, gk.launches_backward)
+    gA, gb = torch.autograd.grad(x, (A, b), c)
+    torch.cuda.synchronize()
+    assert (gk.launches, gk.launches_backward) == (before[0], before[1] + 1)
+    M, _ = gk.gj_solve_reference(torch.cat(
+        [A.detach().transpose(-1, -2), c], -1).contiguous())
+    lam = M[..., 12:]
+    assert torch.equal(gb, lam)
+    assert torch.equal(gA, -lam @ x.detach().transpose(-1, -2))
+
+
+def test_gauss_solve_gradcheck_on_the_card(cuda):
+    g = torch.Generator().manual_seed(9)
+    A = (torch.randn(4, 6, 6, generator=g, dtype=torch.float64)
+         + 6 * torch.eye(6, dtype=torch.float64)).to(cuda).requires_grad_()
+    b = torch.randn(4, 6, 2, generator=g, dtype=torch.float64).to(
+        cuda).requires_grad_()
+    assert torch.autograd.gradcheck(gauss_solve, (A, b))
+
+
+def test_design_value_and_grad_on_the_card_matches_the_cpu(cuda):
+    """The adjoint gradient with the dynamics on the card against the
+    same on the CPU: the value within 1e-10 relative, each knob within
+    1e-8; the forward and the adjoint launch the kernel."""
+    from raft_tpu_torch.designs import demo_semi
+    from raft_tpu_torch.grad import design_value_and_grad
+
+    d = demo_semi(n_cases=2, nw_settings=(0.05, 0.5))
+    v_c, g_c = design_value_and_grad(d, "rao_pitch_peak", device="cpu")
+    before = (gk.launches, gk.launches_backward)
+    v_k, g_k = design_value_and_grad(d, "rao_pitch_peak")
+    assert gk.launches > before[0] and gk.launches_backward > before[1]
+    assert abs(v_k - v_c) <= 1e-10 * abs(v_c)
+    for knob in g_c:
+        assert abs(g_k[knob] - g_c[knob]) <= 1e-8 * abs(g_c[knob]), knob
+
+
+def test_batched_prep_on_the_card_matches_solo_prep(cuda):
+    """The batched prep's program on the card against the per-design
+    host prep: nodes within 1e-12, the case args within 1e-10 of their
+    scale; a lane's bits equal alone and in a full block."""
+    from raft_tpu_torch.batched_prep import PrepFamily
+    from raft_tpu_torch.designs import flagship
+    from raft_tpu_torch.parametric import apply_design_scales
+    from raft_tpu_torch.sweep import _prepare_design
+
+    base = flagship(0.05, 0.5, 2)
+    designs = [apply_design_scales(base, [1.0, 1.0, c, 1.0])
+               for c in np.linspace(0.9, 1.1, 8)]
+    fam = PrepFamily(base)
+    assert fam.device.type == "cuda"
+    lanes = [fam.extract(d) for d in designs]
+    full = fam.prepare(lanes)
+    alone = fam.prepare([lanes[5]])[0]
+    for f in alone[1].__dataclass_fields__:
+        assert torch.equal(getattr(alone[1], f), getattr(full[5][1], f))
+    for x, y in zip(alone[2], full[5][2]):
+        assert np.array_equal(x, y)
+    for j in (0, 7):
+        _, nodes, args = _prepare_design(designs[j], None,
+                                         lambda d, _p: d, None, "cpu")
+        for f in nodes.__dataclass_fields__:
+            a, b = getattr(full[j][1], f), getattr(nodes, f)
+            if b.dtype == torch.bool:
+                assert torch.equal(a, b), f
+            else:
+                assert (a - b).abs().max() <= 1e-12 * b.abs().max(), f
+        for x, y in zip(full[j][2], args):
+            assert np.abs(x - y).max() <= 1e-10 * max(np.abs(y).max(), 1.0)

@@ -75,7 +75,12 @@ def test_run_sweep_matches_raft_tpu(sweeps):
     collected metric within 1e-8, the parameter columns equal."""
     _, out = sweeps
     rj, rt = out["ok"]
-    assert sorted(rt) == sorted(set(rj) - {"prep_batched"})
+    # raft_tpu's prep_batched count is the port's n_prep_batched, beside
+    # n_prep_solo (batched prep off here: no design batched)
+    assert sorted(rt) == sorted(set(rj) - {"prep_batched"}
+                                | {"n_prep_batched", "n_prep_solo"})
+    assert rt["n_prep_batched"] == rj["prep_batched"] == 0
+    assert rt["n_prep_solo"] == len(rt["Xi"])
     assert _rel(rt["Xi"], rj["Xi"]) <= 1e-8
     for f in _FLAGS + ("retried", "failed_mask"):
         np.testing.assert_array_equal(rt[f], rj[f], err_msg=f)

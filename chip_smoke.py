@@ -128,7 +128,35 @@ Phases (each prints a line; any failure raises and exits non-zero):
     against solo prep (raft_tpu's round-off bars), bits across block
     compositions, the geometry program on the card and on the CPU, and
     ``run_design_sweep(batched_prep=True)`` against ``False`` (1e-10),
-    the prep stage's seconds both ways and the designs each path took.
+    the prep stage's seconds both ways and the designs each path took;
+22. ``RAFT_OMDAO`` (the openmdao-less shim) on the flagship as a
+    component (member stations normalized, one coefficient set per
+    member, the flat inputs from this script's own helper): compute()
+    twice, the warm call timed with its gj_solve launches; its stats,
+    aggregates and properties within 1e-10 of their scale of the direct
+    ``Model`` on the card and of the same component on the CPU;
+    compute_partials twice (the cold call builds the adjoint programs),
+    the warm one timed with its forward and backward launches, within
+    1e-8 of the CPU component's and within raft_tpu's bars of central
+    differences of compute() on the card (ballast and line length 5e-3,
+    column diameter 5e-2, eps 2e-3); the same compute + compute_partials
+    loop on the card host's CPU beside it; then one compute() with
+    ``run_native_BEM`` on the potential-flow flagship, with its
+    tile_inv / mm / mm_sub launches, its coefficients within phase 13's
+    bars of phase 13's and its stats within 1e-10 of the direct Model
+    with those coefficients;
+23. ``python -m raft_tpu_torch <flagship.yaml> --plot`` in a
+    subprocess in a temporary directory (exit 0, the natural
+    frequencies and the case analysis printed, both figures non-empty;
+    where matplotlib is not installed, the analysis printed and the
+    command failing on it), then ``__main__.main`` in this process with
+    its gj_solve launches counted (the same natural frequencies), and
+    ``main(["warmup"])`` raising, naming ROADMAP step 12;
+24. ``validate.checked_pipeline`` on the flagship on the card: Xi and
+    the report bit-identical to the unchecked pipeline and to
+    ``analyze_cases``, its launches counted, its time beside the
+    unchecked one; a poisoned C_lin and a poisoned F_add_r each raise a
+    ``FloatingPointError`` naming its phase.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  In the kernel table ``ms`` is the
@@ -136,11 +164,18 @@ time of one call from Python (as ``plain_ms`` and ``library_ms`` are
 taken); ``device_ms``, where given, the kernel's device time alone; the
 ``backward_*`` keys of ``gj_solve`` are phase 19's, its
 ``launches_backward_grad`` the backward launches of phase 20's flagship
-Jacobian and ``launches_batched_prep_sweep`` phase 21's batched sweep.
+Jacobian, ``launches_batched_prep_sweep`` phase 21's batched sweep,
+``launches_omdao`` / ``launches_backward_omdao`` phase 22's warm
+compute() and compute_partials, ``launches_cli`` and
+``launches_checked`` phases 23 and 24; ``launches_omdao_bem`` of the BEM
+kernels is phase 22's run_native_BEM compute().
 Without CUDA, or without the raft_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
 
+import contextlib
+import copy
+import io
 import json
 import math
 import subprocess
@@ -1815,6 +1850,487 @@ def bem_main_path_phase(rt, gk, bg, Timers, model):
           f"converged=all trips={trips} gj_launches={gk.launches} "
           f"xi_rel_vs_cpu={xi_rel:.3e} {split(times)}", flush=True)
 
+# ------------------------------------------------- integration surface
+
+OMDAO_FD_EPS = 2e-3
+# raft_tpu's bars for the exact partials against central differences of
+# compute() (tests/test_parametric.py::test_omdao_scale_partials)
+OMDAO_FD_BARS = (("design_scale_ballast", 5e-3),
+                 ("design_scale_line_length", 5e-3),
+                 ("design_scale_col_diam", 5e-2))
+# except the Max_Offset row: on the flagship the adjoint (the derivative
+# of the exact fixed point) differs from the derivative of compute()
+# (whose fixed point stops at a 1 % tolerance) by 0.6-1.8 % there, in
+# raft_tpu as in the port (ROADMAP.md queue 3 item 19), so that row is
+# held at the loosest of raft_tpu's bars
+OMDAO_OFFSET_BAR = 5e-2
+STAT_CHANNELS = ("surge", "sway", "heave", "roll", "pitch", "yaw", "AxRNA",
+                 "Mbase", "Tmoor")
+
+
+def component_design(design):
+    """``design`` in the flat component's conventions (tests/test_omdao.py):
+    member stations normalized to 0..1 and one drag / added-mass
+    coefficient per member."""
+    d = copy.deepcopy(design)
+    for mem in d["platform"]["members"]:
+        st = np.asarray(mem["stations"], float)
+        mem["stations"] = ((st - st[0]) / (st[-1] - st[0])).tolist()
+        mem["Cd"], mem["Ca"], mem["CdEnd"], mem["CaEnd"] = 0.8, 0.97, 0.6, 0.6
+    return d
+
+
+def omdao_component(omdao, design, **modeling):
+    """The port's RAFT_OMDAO (the openmdao-less shim) set up for
+    ``design`` and given its flat inputs — the options and inputs of
+    tests/test_omdao.py, for any design of that shape."""
+    s = design["settings"]
+    members = design["platform"]["members"]
+    moor = design["mooring"]
+    nw = len(np.arange(s["min_freq"], s["max_freq"] + 0.5 * s["min_freq"],
+                       s["min_freq"]))
+    comp = omdao.RAFT_OMDAO()
+    comp.options["modeling_options"] = dict(dict(
+        nfreq=nw, n_cases=len(design["cases"]["data"]),
+        xi_start=s["XiStart"], min_freq=s["min_freq"],
+        max_freq=s["max_freq"], nIter=s["nIter"],
+        potential_model_override=0, dls_max=5.0, aeroServoMod=0,
+        save_designs=False, trim_ballast=0, heave_tol=1.0), **modeling)
+    comp.options["turbine_options"] = dict(
+        npts=len(design["turbine"]["tower"]["stations"]), PC_GS_n=2,
+        n_span=4, n_aoa=6, n_Re=1, n_tab=1, n_pc=3, n_af=1,
+        af_used_names=["af0"], shape="circ", scalar_diameters=False,
+        scalar_thicknesses=False, scalar_coefficients=True)
+    comp.options["member_options"] = dict(
+        nmembers=len(members), npts=[len(m["stations"]) for m in members],
+        npts_lfill=[np.atleast_1d(m["l_fill"]).size for m in members],
+        npts_rho_fill=[np.atleast_1d(m["rho_fill"]).size for m in members],
+        ncaps=[0] * len(members),
+        nreps=[len(np.atleast_1d(m["heading"])) if "heading" in m else 0
+               for m in members],
+        shape=[m["shape"] for m in members],
+        scalar_thicknesses=[False] * len(members),
+        scalar_diameters=[m["shape"] == "rect" for m in members],
+        scalar_coefficients=[True] * len(members), n_ballast_type=2)
+    comp.options["mooring_options"] = dict(
+        nlines=len(moor["lines"]), nline_types=len(moor["line_types"]),
+        nconnections=len(moor["points"]))
+    comp.options["analysis_options"] = {"general": {"folder_output": "."}}
+    comp.setup()
+
+    turb, site = design["turbine"], design["site"]
+    tower = turb["tower"]
+    for name, v in (("turbine_mRNA", turb["mRNA"]),
+                    ("turbine_IxRNA", turb["IxRNA"]),
+                    ("turbine_IrRNA", turb["IrRNA"]),
+                    ("turbine_xCG_RNA", turb["xCG_RNA"]),
+                    ("turbine_hHub", turb["hHub"]),
+                    ("turbine_Fthrust", turb["Fthrust"]),
+                    ("turbine_yaw_stiffness",
+                     design["platform"].get("yaw_stiffness", 0.0)),
+                    ("rho_air", site["rho_air"]),
+                    ("rho_water", site["rho_water"]),
+                    ("mu_air", site["mu_air"]),
+                    ("shear_exp", site["shearExp"])):
+        comp.set_val(name, v)
+    for key in ("rA", "rB", "gamma", "stations", "d", "t", "Cd", "Ca",
+                "CdEnd", "CaEnd", "rho_shell"):
+        comp.set_val(f"turbine_tower_{key}", tower[key])
+    for i, mem in enumerate(members):
+        p = f"platform_member{i+1}_"
+        if "heading" in mem:
+            comp.set_val(p + "heading", mem["heading"])
+        for key in ("rA", "rB", "gamma", "stations", "t", "Cd", "Ca",
+                    "CdEnd", "CaEnd", "rho_shell"):
+            comp.set_val(p + key, mem[key])
+        comp.set_val(p + "d", mem["d"][0] if mem["shape"] == "rect"
+                     else mem["d"])
+        comp.set_val(p + "l_fill", np.atleast_1d(mem["l_fill"]))
+        comp.set_val(p + "rho_fill", np.atleast_1d(mem["rho_fill"]))
+    comp.set_val("mooring_water_depth", moor["water_depth"])
+    for i, pt in enumerate(moor["points"]):
+        for key in ("name", "type", "location"):
+            comp.set_val(f"mooring_point{i+1}_{key}", pt[key])
+    for i, ln in enumerate(moor["lines"]):
+        for key in ("endA", "endB", "type", "length"):
+            comp.set_val(f"mooring_line{i+1}_{key}", ln[key])
+    for i, lt in enumerate(moor["line_types"]):
+        for key in ("name", "diameter", "mass_density", "stiffness",
+                    "breaking_load", "cost", "transverse_added_mass",
+                    "tangential_added_mass", "transverse_drag",
+                    "tangential_drag"):
+            comp.set_val(f"mooring_line_type{i+1}_{key}", lt[key])
+    comp.set_val("raft_dlcs", design["cases"]["data"])
+    comp.set_val("raft_dlcs_keys", design["cases"]["keys"])
+    return comp
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its per-case prints kept out of the log."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+# a DOF that a head sea leaves at rest carries round-off only, so the
+# rigid-body channels are held against their DOF group's largest
+# (ROADMAP.md queue 3 item 6)
+DOF_GROUPS = (("surge", "sway", "heave"), ("roll", "pitch", "yaw"))
+
+
+def output_scale(ref, name):
+    """The scale an output is held against: a rigid-body channel's
+    statistic the largest of its DOF group's avg / std / max (its PSD the
+    largest of the group's PSDs), another channel's statistic the
+    largest of its channel's avg / std / max, any other output its own
+    largest magnitude."""
+    group = [name]
+    if name.startswith("stats_"):
+        ch, stat = name[len("stats_"):].rsplit("_", 1)
+        chans = next((g for g in DOF_GROUPS if ch in g), (ch,))
+        stats = ("avg", "std", "max") if stat in ("avg", "std", "max") \
+            else (stat,)
+        group = [f"stats_{c}_{t}" for c in chans for t in stats
+                 if f"stats_{c}_{t}" in ref]
+    return max(float(np.abs(np.asarray(ref[g], float)).max())
+               for g in group) or 1.0
+
+
+def stats_gap(outputs, ref):
+    """Worst gap of the component's outputs to ``ref`` (a mapping of
+    the same names), each over its :func:`output_scale`."""
+    worst, where = 0.0, None
+    for name, b in ref.items():
+        a = np.asarray(outputs[name], float)
+        gap = float(np.abs(a - np.asarray(b, float)).max()) \
+            / output_scale(ref, name)
+        if gap > worst:
+            worst, where = gap, name
+    return worst, where
+
+
+def compared_outputs(outputs):
+    """The outputs held across devices: stats, aggregates, properties
+    and the solver's health (its residual is a round-off value and is
+    left out)."""
+    return {k: np.array(v, float) for k, v in outputs.items()
+            if k.startswith(("stats_", "properties_", "platform_"))
+            or k in ("Max_Offset", "heave_avg", "Max_PtfmPitch",
+                     "Std_PtfmPitch", "max_nacelle_Ax", "max_tower_base",
+                     "solver_converged", "solver_iters", "solver_nonfinite",
+                     "solver_recovery_tier")}
+
+
+def direct_outputs(model):
+    """What the component reports, from the port's direct Model."""
+    cm = model.results["case_metrics"]
+    out = {}
+    for ch in STAT_CHANNELS:
+        for s in ("avg", "std", "max"):
+            out[f"stats_{ch}_{s}"] = cm[f"{ch}_{s}"]
+    out["Max_Offset"] = np.sqrt(cm["surge_max"] ** 2
+                                + cm["sway_max"] ** 2).max()
+    out["heave_avg"] = cm["heave_avg"].mean()
+    out["Max_PtfmPitch"] = cm["pitch_max"].max()
+    out["Std_PtfmPitch"] = cm["pitch_std"].mean()
+    out["max_nacelle_Ax"] = cm["AxRNA_std"].max()
+    out["max_tower_base"] = cm["Mbase_max"].max()
+    out["platform_displacement"] = model.statics.V
+    return out
+
+
+def omdao_phase(rt, card, gk):
+    """Phase 22: RAFT_OMDAO on the card."""
+    from raft_tpu_torch import omdao
+
+    design = component_design(flagship(rt))
+    comp = omdao_component(omdao, design, derivatives=True)
+    quiet(comp.run)                                  # cold
+    gk.launches = gk.launches_backward = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quiet(comp.run)
+    compute_s = time.perf_counter() - t0
+    l_compute = gk.launches
+    out = compared_outputs(comp._outputs)
+    if out["solver_converged"].min() != 1.0 or out["solver_nonfinite"].any():
+        raise AssertionError("RAFT_OMDAO on the card: unhealthy cases")
+
+    direct = rt.Model(design)
+    direct.analyze_unloaded()
+    quiet(direct.analyze_cases)
+    gap_direct, at_direct = stats_gap(out, direct_outputs(direct))
+    cpu = omdao_component(omdao, design, derivatives=True, device="cpu")
+    quiet(cpu.run)
+    gap_cpu, at_cpu = stats_gap(out, compared_outputs(cpu._outputs))
+    if not (gap_direct <= 1e-10 and gap_cpu <= 1e-10):
+        raise AssertionError(
+            f"RAFT_OMDAO on the card vs the direct Model {gap_direct:.3e} "
+            f"({at_direct}), vs the CPU component {gap_cpu:.3e} ({at_cpu})")
+
+    cold = {}
+    t0 = time.perf_counter()
+    quiet(comp.compute_partials, comp._inputs, cold)
+    partials_cold_s = time.perf_counter() - t0
+    gk.launches = gk.launches_backward = 0
+    partials = {}
+    t0 = time.perf_counter()
+    quiet(comp.compute_partials, comp._inputs, partials)
+    partials_s = time.perf_counter() - t0
+    l_partials = dict(forward=gk.launches, backward=gk.launches_backward)
+    worst_cold = max(abs(float(partials[k]) - float(v)) / abs(float(v))
+                     for k, v in cold.items())
+    if not worst_cold <= 1e-12:
+        raise AssertionError(f"warm vs cold partials {worst_cold:.3e}")
+    cpu_partials = {}
+    quiet(cpu.compute_partials, cpu._inputs, cpu_partials)
+    worst_cpu = max(abs(float(partials[k]) - float(v)) / abs(float(v))
+                    for k, v in cpu_partials.items())
+    if not worst_cpu <= 1e-8:
+        raise AssertionError(f"card vs CPU partials {worst_cpu:.3e}")
+
+    # central differences of compute() on the card
+    base = {k: float(comp.get_val(k)) for k in omdao._PARTIAL_OUTPUTS}
+    worst_fd = 0.0
+
+    def values_at(name, s):
+        comp.set_val(name, s)
+        quiet(comp.run)
+        comp.set_val(name, 1.0)
+        return {k: float(comp.get_val(k)) for k in base}
+
+    worst_row = dict.fromkeys(base, 0.0)
+    for n, bar_n in OMDAO_FD_BARS:
+        vp, vm = values_at(n, 1 + OMDAO_FD_EPS), values_at(n, 1 - OMDAO_FD_EPS)
+        for k in base:
+            bar = OMDAO_OFFSET_BAR if k == "Max_Offset" else bar_n
+            fd = (vp[k] - vm[k]) / (2 * OMDAO_FD_EPS)
+            scale = max(abs(fd), 1e-6 * max(abs(base[k]), 1.0))
+            rel = abs(float(partials[k, n]) - fd) / scale
+            worst_fd = max(worst_fd, rel / bar)
+            worst_row[k] = max(worst_row[k], rel)
+            if rel > bar:
+                raise AssertionError(f"RAFT_OMDAO partial {k} / {n}: "
+                                     f"{float(partials[k, n])} vs central "
+                                     f"difference {fd} (rel {rel:.3e})")
+    quiet(comp.run)
+
+    # the loop an optimizer runs, warm, on the card host's CPU
+    t0 = time.perf_counter()
+    quiet(cpu.run)
+    cpu_compute_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quiet(cpu.compute_partials, cpu._inputs, {})
+    cpu_partials_s = time.perf_counter() - t0
+    print(f"phase omdao: {card} flagship as a component ("
+          f"{direct.nw} w x {direct.Xi.shape[0]} cases) compute_s="
+          f"{compute_s:.4f} gj_launches={l_compute} "
+          f"stats_gap_vs_direct_model={gap_direct:.3e} stats_gap_vs_cpu="
+          f"{gap_cpu:.3e} compute_partials cold_s={partials_cold_s:.3f} "
+          f"warm_s={partials_s:.3f} gj_launches forward="
+          f"{l_partials['forward']} backward={l_partials['backward']} "
+          f"partials_rel_vs_cpu={worst_cpu:.3e} worst_vs_central_"
+          f"differences={worst_fd:.3f} of the bar (per row "
+          f"{ {k: f'{v:.2e}' for k, v in worst_row.items()} }) | iteration "
+          f"(compute + compute_partials) card_s={compute_s + partials_s:.3f}"
+          f" host_cpu_s={cpu_compute_s + cpu_partials_s:.3f} (compute "
+          f"{cpu_compute_s:.3f}, partials {cpu_partials_s:.3f})",
+          flush=True)
+    return dict(gj_solve=l_compute, gj_solve_backward=l_partials["backward"])
+
+
+def omdao_bem_phase(rt, bg, gk, bem_model):
+    """Phase 22, BEM: one RAFT_OMDAO compute() with run_native_BEM on the
+    potential-flow flagship on the card; its coefficients against phase
+    13's within that phase's bars, its stats against the direct Model of
+    the same design with those coefficients (1e-10)."""
+    from raft_tpu_torch import omdao
+
+    design = component_design(bem_design(rt))
+    comp = omdao_component(omdao, design, potential_model_override=2,
+                           run_native_BEM=True)
+    bg.reset_launches()
+    gk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quiet(comp.run)
+    wall_s = time.perf_counter() - t0
+    launches, gj_launches = dict(bg.launches), gk.launches
+    coeffs, ref = comp._last_model.bem_coeffs, bem_model.bem_coeffs
+    nf = len(coeffs.w)
+    blocks = 2 * coeffs.solver_info["npanels_solved"] // 512
+    if launches != {k: blocks * nf for k in launches}:
+        raise AssertionError(f"OMDAO BEM launches {launches}")
+    gaps = {}
+    for k, bar in (("A", 2e-4), ("B", 1e-3), ("X", 2e-4)):
+        r = getattr(ref, k)
+        gaps[k] = float(np.abs(getattr(coeffs, k) - r).max()
+                        / np.abs(r).max())
+        if not gaps[k] <= bar:
+            raise AssertionError(f"OMDAO BEM {k} vs phase 13 {gaps[k]:.3e}")
+    direct = rt.Model(design)
+    direct.analyze_unloaded()
+    direct.bem_coeffs = coeffs
+    quiet(direct.analyze_cases)
+    gap, at = stats_gap(compared_outputs(comp._outputs),
+                        direct_outputs(direct))
+    if not gap <= 1e-10:
+        raise AssertionError(f"OMDAO BEM stats vs the direct Model {gap:.3e}"
+                             f" ({at})")
+    print(f"phase omdao bem: run_native_BEM compute_s={wall_s:.3f} "
+          f"launches={launches} gj_launches={gj_launches} gaps_vs_phase_13="
+          f"{ {k: f'{v:.2e}' for k, v in gaps.items()} } stats_gap_vs_"
+          f"direct_model={gap:.3e}", flush=True)
+    return launches
+
+
+def _plain(obj):
+    """A design with NumPy scalars and arrays as plain Python values."""
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return _plain(obj.tolist())
+    return obj.item() if isinstance(obj, np.generic) else obj
+
+
+def fn_line(text):
+    lines = [ln for ln in text.splitlines() if ln.startswith("Fn (Hz)")]
+    if len(lines) != 1:
+        raise AssertionError(f"no single natural-frequency line: {lines}")
+    return lines[0]
+
+
+def cli_phase(rt, gk):
+    """Phase 23: ``python -m raft_tpu_torch <flagship.yaml> --plot`` in a
+    subprocess in a temporary directory, then ``__main__.main`` in this
+    process with the gj_solve launches counted, then the serve-stack
+    command refused."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import yaml
+
+    from raft_tpu_torch import __main__ as cli
+
+    plots = importlib.util.find_spec("matplotlib") is not None
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.yaml")
+        with open(path, "w") as fh:
+            yaml.safe_dump(_plain(flagship(rt)), fh)
+        env = dict(os.environ, PYTHONPATH=root, MPLBACKEND="Agg")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "raft_tpu_torch", path, "--plot"],
+            capture_output=True, text=True, timeout=300, env=env, cwd=tmp)
+        cli_s = time.perf_counter() - t0
+        for text in ("Natural frequencies", "analyzing cases"):
+            if text not in out.stdout:
+                raise AssertionError(f"CLI printed no '{text}':\n"
+                                     f"{out.stdout[-2000:]}\n"
+                                     f"{out.stderr[-2000:]}")
+        pngs = {}
+        if plots:
+            if out.returncode != 0:
+                raise AssertionError(f"CLI exit {out.returncode}:\n"
+                                     f"{out.stderr[-2000:]}")
+            for name in ("raft_tpu_geometry.png", "raft_tpu_responses.png"):
+                pngs[name] = os.path.getsize(os.path.join(tmp, name))
+                if not pngs[name] > 0:
+                    raise AssertionError(f"empty {name}")
+            plotted = f"pngs={pngs}"
+        else:
+            # matplotlib is not installed here: the figures cannot be
+            # drawn, and the command must say so and fail
+            if out.returncode == 0 or \
+                    "No module named 'matplotlib'" not in out.stderr:
+                raise AssertionError(
+                    f"CLI --plot without matplotlib: exit {out.returncode}"
+                    f"\n{out.stderr[-2000:]}")
+            plotted = ("pngs=not drawn (matplotlib is not installed on this "
+                       "machine; --plot exits 1 naming it, after the "
+                       "analysis)")
+
+        gk.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            cli.main([path])
+        main_s = time.perf_counter() - t0
+        launches = gk.launches
+    if launches <= 0:
+        raise AssertionError("the CLI launched no gj_solve")
+    if fn_line(log.getvalue()) != fn_line(out.stdout):
+        raise AssertionError("the CLI's natural frequencies differ in and "
+                             "out of process")
+    try:
+        cli.main(["warmup"])
+    except NotImplementedError as e:
+        if "queue 1 step 12" not in str(e):
+            raise
+    else:
+        raise AssertionError("'warmup' did not raise")
+    print(f"phase cli: subprocess exit={out.returncode} wall_s={cli_s:.2f} "
+          f"{plotted} | in process main_s={main_s:.3f} gj_launches="
+          f"{launches} '{fn_line(out.stdout)}' | warmup raises naming "
+          f"step 12", flush=True)
+    return dict(gj_solve=launches)
+
+
+def checked_phase(rt, gk):
+    """Phase 24: validate.checked_pipeline on the flagship on the card."""
+    from raft_tpu_torch import validate
+    from raft_tpu_torch.convert import case_args_from_numpy
+
+    model = rt.Model(flagship(rt))
+    model.analyze_unloaded()
+    quiet(model.analyze_cases)
+    args, _ = model.prepare_case_inputs(verbose=False)
+    run = validate.checked_pipeline(model)
+    unchecked = model.case_pipeline_fn()
+    targs = case_args_from_numpy(args, model.device, model.dtype)
+    run(*args)                                       # warm
+    gk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xr, xi, rep = run(*args)
+    torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t0
+    launches = gk.launches
+    t0 = time.perf_counter()
+    ur, ui, urep = unchecked(*targs)
+    torch.cuda.synchronize()
+    unchecked_s = time.perf_counter() - t0
+    Xi = (xr.to("cpu", torch.float64).numpy()
+          + 1j * xi.to("cpu", torch.float64).numpy())
+    if not (torch.equal(xr, ur) and torch.equal(xi, ui)
+            and all(torch.equal(a, b) for a, b in zip(rep, urep))
+            and np.array_equal(Xi, model.Xi)):
+        raise AssertionError("checked pipeline not bit-identical to legacy")
+    raised = {}
+    for index, name in ((2, "C_lin"), (5, "F_add_r")):
+        bad = list(args)
+        bad[index] = np.full_like(bad[index], np.nan)
+        try:
+            run(*bad)
+        except FloatingPointError as e:
+            if "nan" not in str(e):
+                raise
+            raised[name] = str(e)
+        else:
+            raise AssertionError(f"poisoned {name} did not raise")
+    for name, phase in (("C_lin", "assembled Z and F"),
+                        ("F_add_r", "excitation")):
+        if phase not in raised[name]:
+            raise AssertionError(f"poisoned {name}: {raised[name]}")
+    print(f"phase checked pipeline: bit_identical_to_legacy=True "
+          f"gj_launches={launches} checked_s={checked_s:.4f} unchecked_s="
+          f"{unchecked_s:.4f} poisoned C_lin -> '{raised['C_lin']}', "
+          f"F_add_r -> '{raised['F_add_r']}'", flush=True)
+    return dict(gj_solve=launches)
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1863,6 +2379,18 @@ def main():
                                  mm32[torch.float32])
     bem_main_path_phase(rt, gk, bg, Timers, bem_model)
 
+    l_omdao = omdao_phase(rt, card, gk)
+    l_omdao_bem = omdao_bem_phase(rt, bg, gk, bem_model)
+    l_cli = cli_phase(rt, gk)
+    l_checked = checked_phase(rt, gk)
+    new_paths = dict(omdao=l_omdao["gj_solve"],
+                     backward_omdao=l_omdao["gj_solve_backward"],
+                     cli=l_cli["gj_solve"], checked=l_checked["gj_solve"],
+                     **{f"omdao_bem_{k}": v for k, v in l_omdao_bem.items()})
+    if not all(v > 0 for v in new_paths.values()):
+        raise AssertionError(f"a kernel was not launched on a new path: "
+                             f"{new_paths}")
+
     kernels = [
         dict(name="gj_solve", route="cuda",
              source="raft_tpu_torch/csrc/gj_solve.cu",
@@ -1880,8 +2408,11 @@ def main():
              launches_backward_grad_aero=l_grad["aero"]["gj_solve_backward"],
              launches_backward_value_and_grad=l_grad[
                  "flagship_rao_pitch_peak"]["gj_solve_backward"],
-             launches_batched_prep_sweep=l_prep["gj_solve"], **g64,
-             **bwd64),
+             launches_batched_prep_sweep=l_prep["gj_solve"],
+             launches_omdao=l_omdao["gj_solve"],
+             launches_backward_omdao=l_omdao["gj_solve_backward"],
+             launches_cli=l_cli["gj_solve"],
+             launches_checked=l_checked["gj_solve"], **g64, **bwd64),
         dict(name="fused_block", route="cuda",
              source="raft_tpu_torch/csrc/fused_block.cu",
              replaces="raft_tpu/pallas_kernels.py:428",
@@ -1892,13 +2423,18 @@ def main():
         dict(name="tile_inv", route="cuda",
              source="raft_tpu_torch/csrc/tile_inv.cu",
              replaces="raft_tpu/pallas_kernels.py:208",
-             launches=l_bem["tile_inv"], **ti32),
+             launches=l_bem["tile_inv"],
+             launches_omdao_bem=l_omdao_bem["tile_inv"], **ti32),
         dict(name="mm", route="cuda", source="raft_tpu_torch/csrc/mm.cu",
              replaces="raft_tpu/pallas_kernels.py:253",
-             launches=l_bem["mm"], **mm32[torch.float32]["mm"]),
+             launches=l_bem["mm"],
+             launches_omdao_bem=l_omdao_bem["mm"],
+             **mm32[torch.float32]["mm"]),
         dict(name="mm_sub", route="cuda", source="raft_tpu_torch/csrc/mm.cu",
              replaces="raft_tpu/pallas_kernels.py:263",
-             launches=l_bem["mm_sub"], **mm32[torch.float32]["mm_sub"]),
+             launches=l_bem["mm_sub"],
+             launches_omdao_bem=l_omdao_bem["mm_sub"],
+             **mm32[torch.float32]["mm_sub"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in

@@ -18,6 +18,11 @@
   sets ``nonfinite`` (the NaN quarantine); the final re-solve goes
   through the escalating recovery ladder, which fills the
   :class:`raft_tpu_torch.health.SolveReport`.
+- The checkable pipeline: a :class:`FiniteCheck` passed to the phases
+  and to :func:`solve_phases` checks the output of every phase for
+  non-finite values and raises, naming the phase (the JAX package checks
+  every primitive under ``checkify``; a check of the final amplitudes
+  alone would find nothing, since the quarantine returns finite ones).
 - Reverse mode: every solve is a :class:`GaussSolve`, whose backward is
   one more elimination (the kernel on the card) of the transposed
   systems.  The fixed point, the ladder and its tier selection are
@@ -280,6 +285,29 @@ class FixedPointPhases:
         self.finalize = finalize
 
 
+class FiniteCheck:
+    """The NaN checks of the checkable pipeline: ``check(phase,
+    *tensors)`` raises :class:`FloatingPointError`, naming the phase and
+    the lanes, where a tensor (leading lane axis) holds nan or inf in a
+    lane of the mask ``lanes`` [L], or in any lane while it is None.
+    :func:`solve_phases` sets ``lanes`` to the lanes each trip advances,
+    so a lane that is done is not checked (the JAX package's ``cond``
+    runs no body for it).  Each check is one host read."""
+
+    def __init__(self):
+        self.lanes = None
+
+    def __call__(self, phase, *tensors):
+        for t in tensors:
+            bad = ~torch.isfinite(t).flatten(1).all(dim=1)
+            if self.lanes is not None:
+                bad = bad & self.lanes
+            if bool(bad.any()):
+                raise FloatingPointError(
+                    f"nan or inf in the {phase} of lane(s) "
+                    f"{torch.nonzero(bad).flatten().tolist()}")
+
+
 def _keep(new, old, active):
     """``new`` where the lane is active, else ``old`` (leading lane axis)."""
     return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)),
@@ -296,7 +324,7 @@ def gated_trip(ph, state):
 
 def fixed_point_phases(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
                        F_lin_i, XiStart, nIter=15, tol=TOL, refine=1,
-                       relax=0.8, mp=False):
+                       relax=0.8, mp=False, check=None):
     """Build the fixed-point phases of a lane batch (see
     :class:`FixedPointPhases`).
 
@@ -312,6 +340,9 @@ def fixed_point_phases(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
     mp : mixed-precision assembly inside the fixed point; the final
         re-solve then shadows it with a full-precision assembly that
         degraded frequency bins fall back to (raft_tpu_torch/precision.py)
+    check : a :class:`FiniteCheck` run on the drag linearization, the
+        assembled Z and F and the solve of every trip, and on the
+        recovery ladder's amplitudes, or None
     """
     nc, nw = M_lin.shape[0], w.shape[0]
     cdtype = u.dtype
@@ -326,9 +357,14 @@ def fixed_point_phases(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
         use_mp = mp and not full_precision
         B_drag, F_drag = linearized_drag(nodes, XiL, u, w, dw, rho,
                                          mp=use_mp)
+        if check is not None:
+            check("drag linearization", B_drag, F_drag)
         Zr, Zi = assemble_impedance(w, M_lin, B_lin + B_drag[:, None], C,
                                     mp=use_mp)
-        return Zr, Zi, F_drag + F_lin
+        F = F_drag + F_lin
+        if check is not None:
+            check("assembled Z and F", Zr, Zi, F)
+        return Zr, Zi, F
 
     def cond(state):
         i, _, _, _, done, _ = state
@@ -340,6 +376,8 @@ def fixed_point_phases(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
         # solution to well within its 1% convergence tolerance
         Zr, Zi, F = assemble(XiLast)
         xr, xi = solve_complex_6x6(Zr, Zi, F.real, F.imag, refine=0)
+        if check is not None:
+            check("solve", xr, xi)
         # contiguous, so the loop state keeps one layout whichever block
         # (torch or the fused kernel) produced it
         Xn = torch.complex(xr, xi).transpose(-1, -2).contiguous()  # [L,6,nw]
@@ -388,6 +426,8 @@ def fixed_point_phases(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
             resid = torch.where(degraded, resid_f, resid)
             cond_est = torch.where(degraded, cond_f, cond_est)
             tier = torch.where(degraded, tier_f, tier)
+        if check is not None:
+            check("recovery ladder", xr_c, xi_c)
         Xi_cand = torch.complex(xr_c, xi_c).transpose(-1, -2)   # [L, 6, nw]
         cand_ok = torch.isfinite(Xi_cand).all(dim=-1).all(dim=-1)
         # if even the ladder's last tier is non-finite, fall back to the
@@ -422,11 +462,25 @@ def solve_dynamics(nodes, u, w, dw, rho, M_lin, B_lin, C_lin, F_lin_r,
         XiStart, nIter=nIter, tol=tol, refine=refine, relax=relax, mp=mp))
 
 
-def solve_phases(ph):
+def solve_phases(ph, check=None):
     """The legacy composition of :class:`FixedPointPhases`: gated trips
     while any lane iterates (one host read of the mask per trip), then
-    ``finalize``."""
+    ``finalize``.
+
+    ``check``: the :class:`FiniteCheck` the phases were built with, for
+    the checkable pipeline.  Its checks see the lanes each trip advances,
+    then every lane in ``finalize``.  The JAX package's checkable fixed
+    point runs nIter + 1 trips, each gated by ``cond``; this loop ends
+    after at most as many (``cond`` stops every lane at nIter + 1), and
+    the trips it leaves out would change no lane, so the amplitudes are
+    those of the unchecked solve, bit for bit."""
     state = ph.init
-    while bool(ph.cond(state).any()):
-        state = gated_trip(ph, state)
+    try:
+        while bool((active := ph.cond(state)).any()):
+            if check is not None:
+                check.lanes = active
+            state = gated_trip(ph, state)
+    finally:
+        if check is not None:
+            check.lanes = None
     return ph.finalize(state)

@@ -38,7 +38,11 @@ from raft_tpu_torch.bem import (
     write_wamit_hst,
 )
 from raft_tpu_torch.convert import case_args_from_numpy
-from raft_tpu_torch.dynamics import fixed_point_phases, solve_phases
+from raft_tpu_torch.dynamics import (
+    FiniteCheck,
+    fixed_point_phases,
+    solve_phases,
+)
 from raft_tpu_torch.fatigue import dirlik_del
 from raft_tpu_torch.geometry import pack_nodes, process_members
 from raft_tpu_torch.health import log_report, report_dict, report_to_numpy
@@ -129,8 +133,11 @@ def make_case_phases(w, k, depth, rho, g, XiStart, nIter, dtype, device,
     ``phases(nodes, u, C_lin[L,6,6], M_lin[L,nw,6,6], B_lin, Fr, Fi)``
         the :class:`raft_tpu_torch.dynamics.FixedPointPhases` over them.
 
-    ``nodes`` is shared by the lanes ([N, ...]) or per lane
-    ([L, N, ...]).  ``mp`` selects the mixed-precision policy."""
+    Both take ``check=``, a :class:`raft_tpu_torch.dynamics.FiniteCheck`
+    for the checkable pipeline (the prelude checks the wave kinematics
+    and the excitation).  ``nodes`` is shared by the lanes ([N, ...]) or
+    per lane ([L, N, ...]).  ``mp`` selects the mixed-precision
+    policy."""
     w = torch.as_tensor(np.asarray(w).astype(_np_dtype(dtype)),
                         device=device)
     k = torch.as_tensor(np.asarray(k).astype(_np_dtype(dtype)),
@@ -140,36 +147,47 @@ def make_case_phases(w, k, depth, rho, g, XiStart, nIter, dtype, device,
     nIter, XiStart = int(nIter), float(XiStart)
     cdtype = complex_dtype(dtype)
 
-    def prelude(nodes, zeta, beta, F_add_r, F_add_i):
+    def prelude(nodes, zeta, beta, F_add_r, F_add_i, check=None):
         u, ud, pD = wave_kinematics(zeta.to(cdtype), beta, w, k, depth,
                                     nodes.r, rho=rho, g=g,
                                     per_case_r=nodes.r.dim() == 3)
+        if check is not None:
+            check("wave kinematics", u, ud, pD)
         F_iner = excitation_froude_krylov(nodes, u, ud, pD, rho, mp=mp)
-        return u, F_iner.real + F_add_r, F_iner.imag + F_add_i
+        Fr, Fi = F_iner.real + F_add_r, F_iner.imag + F_add_i
+        if check is not None:
+            check("excitation", Fr, Fi)
+        return u, Fr, Fi
 
-    def phases(nodes, u, C_lin, M_lin, B_lin, Fr, Fi):
+    def phases(nodes, u, C_lin, M_lin, B_lin, Fr, Fi, check=None):
         return fixed_point_phases(nodes, u, w, dw, rho, M_lin, B_lin, C_lin,
                                   Fr, Fi, XiStart, nIter=nIter, relax=relax,
-                                  mp=mp)
+                                  mp=mp, check=check)
 
     return prelude, phases
 
 
 def make_case_dynamics(w, k, depth, rho, g, XiStart, nIter, dtype, device,
-                       relax=0.8, mp=False):
+                       relax=0.8, mp=False, checkable=False):
     """Build the batched device function
     ``fn(nodes, zeta[nc,nw], beta[nc], C_lin[nc,6,6], M_lin[nc,nw,6,6],
     B_lin[nc,nw,6,6], F_add_r[nc,nw,6], F_add_i[nc,nw,6])
     -> (Xi_r[nc,6,nw], Xi_i[nc,6,nw], SolveReport with [nc] fields)``
     with every tensor on ``device`` in ``dtype`` (the JAX package's
     ``one_case`` under ``vmap``): the phases of :func:`make_case_phases`
-    run as the legacy solve."""
+    run as the legacy solve.  ``checkable``: every phase's output is
+    checked for nan and inf, and the first one raises
+    :class:`FloatingPointError` naming its phase; the amplitudes are the
+    unchecked solve's, bit for bit."""
     prelude, phases = make_case_phases(w, k, depth, rho, g, XiStart, nIter,
                                        dtype, device, relax=relax, mp=mp)
 
     def cases(nodes, zeta, beta, C_lin, M_lin, B_lin, F_add_r, F_add_i):
-        u, Fr, Fi = prelude(nodes, zeta, beta, F_add_r, F_add_i)
-        return solve_phases(phases(nodes, u, C_lin, M_lin, B_lin, Fr, Fi))
+        check = FiniteCheck() if checkable else None
+        u, Fr, Fi = prelude(nodes, zeta, beta, F_add_r, F_add_i,
+                            check=check)
+        return solve_phases(phases(nodes, u, C_lin, M_lin, B_lin, Fr, Fi,
+                                   check=check), check=check)
 
     return cases
 
@@ -488,16 +506,24 @@ class Model:
         (zeta[nc,nw], beta[nc], C_lin[nc,6,6], M_lin[nc,nw,6,6],
         B_lin[nc,nw,6,6], F_add_r[nc,nw,6], F_add_i[nc,nw,6]) as tensors on
         the Model's device and dtype
-        -> (Xi_r[nc,6,nw], Xi_i[nc,6,nw], SolveReport with [nc] fields)."""
-        if checkable or wrap is not None:
-            raise _not_ported("the NaN-checking debug pipeline", 11)
+        -> (Xi_r[nc,6,nw], Xi_i[nc,6,nw], SolveReport with [nc] fields).
+
+        ``checkable``: the NaN-checking debug pipeline (see
+        :func:`make_case_dynamics`; raft_tpu_torch.validate.
+        checked_pipeline).  ``wrap`` is applied to the returned function,
+        which is batched over the cases (the JAX package applies it to
+        the one-case closure before its vmap)."""
         cases = make_case_dynamics(
             self.w, self.k, self.depth, self.rho_water, self.g,
             self.XiStart, self.nIter, self.dtype, self.device,
-            mp=self.mixed_precision,
+            mp=self.mixed_precision, checkable=checkable,
         )
         nodes = self.nodes.to(self.device, self.dtype)
-        return lambda *a: cases(nodes, *a)
+
+        def fn(*args):
+            return cases(nodes, *args)
+
+        return fn if wrap is None else wrap(fn)
 
     def prepare_case_inputs(self, cases=None, verbose=True):
         """Host-side setup for the batched case solve: mooring
@@ -1181,7 +1207,35 @@ class Model:
 
     preprocess_HAMS = preprocess_hams
 
+    # ------------------------------------------------------------------
+    # plotting (host-side, optional; raft_tpu_torch/viz.py)
+    # ------------------------------------------------------------------
+
+    def plot(self, ax=None, color="k", nodes=False, **kwargs):
+        """3-D wireframe of the full system
+        (reference raft/raft_model.py:792-823).  Reference-only keyword
+        arguments (hideGrid, draw_body, ...) are accepted and ignored so
+        ported call sites keep working."""
+        import inspect
+
+        from raft_tpu_torch.viz import plot_model
+
+        accepted = inspect.signature(plot_model).parameters
+        ignored = [k for k in kwargs if k not in accepted]
+        if ignored:
+            print(f"Model.plot: ignoring unsupported options {ignored}")
+        kwargs = {k: v for k, v in kwargs.items() if k in accepted}
+        return plot_model(self, ax=ax, color=color, nodes=nodes, **kwargs)
+
+    def plot_responses(self, channels=None):
+        """Response PSD subplot grid
+        (reference raft/raft_model.py:730-765)."""
+        from raft_tpu_torch.viz import plot_responses
+
+        return plot_responses(self, channels=channels)
+
     # camelCase aliases for reference-API compatibility
+    plotResponses = plot_responses
     analyzeUnloaded = analyze_unloaded
     analyzeCases = analyze_cases
     solveEigen = solve_eigen
@@ -1193,9 +1247,9 @@ class Model:
 
 def run_raft(input_file, plot=0, ballast=0, run_native_bem=False, **kwargs):
     """Set up and run the full analysis of a design dict or YAML path
-    (reference raft/raft_model.py:1092-1135)."""
-    if plot:
-        raise _not_ported("plotting", 11)
+    (reference raft/raft_model.py:1092-1135).  ``plot`` saves the
+    geometry and the response spectra as raft_tpu_geometry.png and
+    raft_tpu_responses.png in the working directory."""
     design = load_design(input_file)
     print(" --- making model ---")
     model = Model(design, **kwargs)
@@ -1208,6 +1262,16 @@ def run_raft(input_file, plot=0, ballast=0, run_native_bem=False, **kwargs):
     model.analyze_cases()
     model.solve_eigen()
     model.calc_outputs()
+    if plot:
+        import matplotlib.pyplot as plt
+
+        fig, _ = model.plot()
+        fig.savefig("raft_tpu_geometry.png", dpi=120)
+        plt.close(fig)
+        fig, _ = model.plot_responses()
+        fig.savefig("raft_tpu_responses.png", dpi=120)
+        plt.close(fig)
+        print("saved raft_tpu_geometry.png, raft_tpu_responses.png")
     return model
 
 

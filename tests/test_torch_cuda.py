@@ -1,7 +1,8 @@
 """The CUDA kernels on the card — Gauss–Jordan (and its backward), the
 fused fixed-point block (one thread-block cluster per lane), and the BEM
 solve's pivot-tile inverse and matrix products — with the design
-gradients and the batched design prep on the card (marked ``cuda``;
+gradients, the batched design prep, the OpenMDAO component, the checked
+pipeline and the CLI on the card (marked ``cuda``;
 each test skips with its reason where there is no card).  This file
 imports neither jax nor raft_tpu, so it runs on a machine with only the
 port's dependencies:
@@ -646,3 +647,72 @@ def test_batched_prep_on_the_card_matches_solo_prep(cuda):
                 assert (a - b).abs().max() <= 1e-12 * b.abs().max(), f
         for x, y in zip(full[j][2], args):
             assert np.abs(x - y).max() <= 1e-10 * max(np.abs(y).max(), 1.0)
+
+
+def test_omdao_compute_and_partials_on_the_card_match_the_cpu(cuda):
+    """RAFT_OMDAO with the dynamics on the card (the default device)
+    against the same component on the CPU: stats, aggregates and
+    properties within 1e-10 of their scale, the exact partials within
+    1e-8 relative; compute and compute_partials launch the kernel
+    (forward and backward)."""
+    import chip_smoke as cs
+    from raft_tpu_torch import omdao
+    from raft_tpu_torch.designs import flagship
+
+    design = cs.component_design(flagship(0.05, 0.5, 2))
+    card = cs.omdao_component(omdao, design, derivatives=True)
+    cpu = cs.omdao_component(omdao, design, derivatives=True, device="cpu")
+    before = gk.launches
+    cs.quiet(card.run)
+    assert gk.launches > before
+    cs.quiet(cpu.run)
+    gap, where = cs.stats_gap(cs.compared_outputs(card._outputs),
+                              cs.compared_outputs(cpu._outputs))
+    assert gap <= 1e-10, where
+    p_card, p_cpu = {}, {}
+    before = gk.launches_backward
+    cs.quiet(card.compute_partials, card._inputs, p_card)
+    assert gk.launches_backward > before
+    cs.quiet(cpu.compute_partials, cpu._inputs, p_cpu)
+    for key, v in p_cpu.items():
+        assert abs(float(p_card[key]) - float(v)) <= 1e-8 * abs(float(v))
+
+
+def test_checked_pipeline_on_the_card_equals_legacy(cuda):
+    """validate.checked_pipeline on the card: the unchecked pipeline's
+    bits, and a poisoned stiffness raises naming its phase."""
+    from raft_tpu_torch.convert import case_args_from_numpy
+    from raft_tpu_torch.designs import flagship
+    from raft_tpu_torch.validate import checked_pipeline
+
+    model = raft_tpu_torch.Model(flagship(0.05, 0.5, 3))
+    model.analyze_unloaded()
+    args, _ = model.prepare_case_inputs(verbose=False)
+    before = gk.launches
+    out = checked_pipeline(model)(*args)
+    assert gk.launches > before
+    ref = model.case_pipeline_fn()(*case_args_from_numpy(
+        args, model.device, model.dtype))
+    for a, b in zip(out[:2] + tuple(out[2]), ref[:2] + tuple(ref[2])):
+        assert torch.equal(a, b)
+    bad = list(args)
+    bad[2] = np.full_like(bad[2], np.nan)
+    with pytest.raises(FloatingPointError, match="nan.*assembled Z and F"):
+        checked_pipeline(model)(*bad)
+
+
+def test_cli_in_process_launches_the_kernel(cuda, tmp_path, capsys):
+    """``raft_tpu_torch.__main__.main`` on a design file runs the case
+    dynamics on the card by default."""
+    import pickle
+
+    from raft_tpu_torch.__main__ import main
+    from raft_tpu_torch.designs import flagship
+
+    path = tmp_path / "flagship.pkl"
+    path.write_bytes(pickle.dumps(flagship(0.05, 0.5, 2)))
+    before = gk.launches
+    model = main([str(path)])
+    assert gk.launches > before
+    assert model.device.type == "cuda"
+    assert "Natural frequencies" in capsys.readouterr().out

@@ -231,13 +231,13 @@ def test_model_without_device_needs_cuda(monkeypatch, name):
 
 def test_unported_paths_raise_not_implemented():
     """The BEM solve is ported (tests/test_torch_bem_model.py); its
-    multi-device form is not."""
+    multi-device form is not.  The checkable pipeline is ported
+    (tests/test_torch_validate.py)."""
     tm = raft_tpu_torch.Model(_design("spar"), device="cpu")
     design = _design("spar")
     design["platform"]["potModMaster"] = 2
     bem = raft_tpu_torch.Model(design, device="cpu")
     for call in (lambda: tm.analyze_cases(solver=lambda *a: None),
-                 lambda: tm.case_pipeline_fn(checkable=True),
                  lambda: bem.run_bem(n_devices=2, dz_max=20.0,
                                      da_max=20.0)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

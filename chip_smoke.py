@@ -151,12 +151,45 @@ Phases (each prints a line; any failure raises and exits non-zero):
     where matplotlib is not installed, the analysis printed and the
     command failing on it), then ``__main__.main`` in this process with
     its gj_solve launches counted (the same natural frequencies), and
-    ``main(["warmup"])`` raising, naming ROADMAP step 12;
+    ``main(["serve", "--http", "0"])`` raising, naming ROADMAP step 12b;
 24. ``validate.checked_pipeline`` on the flagship on the card: Xi and
     the report bit-identical to the unchecked pipeline and to
     ``analyze_cases``, its launches counted, its time beside the
     unchecked one; a poisoned C_lin and a poisoned F_add_r each raise a
-    ``FloatingPointError`` naming its phase.
+    ``FloatingPointError`` naming its phase;
+25. serve coalesce: ten requests (eight flagship ballast variants, two
+    aero semis, 128 frequencies x 12 cases each, one 96-node x 32-slot
+    bucket) from four client threads through ``serve.Engine`` on the card
+    (window 5 ms): fewer dispatches than requests; each result
+    ``torch.equal`` to the same request served alone in a fresh engine
+    and to ``Model(design, slots=bucket)``, and within 1e-12 of the
+    un-bucketed ``Model``; gj_solve on the operands of one served
+    dispatch (the bucket's n_slots x nw systems) bit-equal to its plain
+    version; gj_solve launches per dispatch, occupancy, p50 and p95
+    latency;
+26. serve fused: the same requests with ``fixed_point="fused"``: the
+    fused_block launches, alone == coalesced == ``Model(slots=)``, within
+    phase 8's bar of phase 25's bits, flags identical; fused_block on the
+    operands of one served block (the padded bucket's nodes, padding
+    lanes copied from lane 0) against its plain version: i / done / froze
+    equal, amplitudes within 1e-12 of max|x|;
+27. serve sweep: 64 draft-scaled aero semis as one sweep (chunks of 8
+    designs) uninterrupted, then under interactive load with preemption
+    on (suspended chunks parked on the card) and off:
+    every run ``torch.equal`` to the uninterrupted one, the yields, the
+    interactive p50 and p95 each way;
+28. serve faults: chaos ``nan_lane`` (own lanes quarantined, the mate
+    bit-identical), a transient ``backend_error`` retried to the same
+    bits, ``dispatch_stall`` to ``watchdog_timeout`` and the breaker to
+    ``rejected_circuit`` and back, a result-cache hit with the same bits
+    and no dispatch; every result served on the card;
+29. serve warm restart: ``python -m raft_tpu_torch serve`` subprocesses
+    answering two stdin design lines, cold on an empty cache directory,
+    then warm on the same one (the manifest replayed, no nvcc, the same
+    bits) and with two unseen designs (the manifest alone): the buckets
+    replayed, the first-request latencies;
+30. serve grad: ``Engine.submit_grad`` on the flagship within 1e-8 of
+    ``grad.design_value_and_grad`` on the card, with its launches.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  In the kernel table ``ms`` is the
@@ -915,15 +948,22 @@ RAFT_TPU_CPU_MS_PER_DESIGN_VOLTURNUS = 263.97
 
 class _Capture:
     """Wraps a kernel's entry: keeps a copy of the inputs of the first
-    call whose argument ``arg`` has ``lanes`` rows, and forwards every
-    call."""
+    call whose argument ``arg`` has ``lanes`` rows (any count with None)
+    and, with ``nodes``, whose node bundle (argument 0) has that many
+    nodes; forwards every call."""
 
-    def __init__(self, fn, lanes, arg=0):
-        self.fn, self.lanes, self.arg = fn, lanes, arg
+    def __init__(self, fn, lanes, arg=0, nodes=None):
+        self.fn, self.lanes, self.arg, self.nodes = fn, lanes, arg, nodes
         self.args = self.kw = None
 
+    def _wanted(self, args):
+        return ((self.lanes is None
+                 or args[self.arg].shape[0] == self.lanes)
+                and (self.nodes is None
+                     or args[0].r.shape[-2] == self.nodes))
+
     def __call__(self, *args, **kw):
-        if self.args is None and args[self.arg].shape[0] == self.lanes:
+        if self.args is None and self._wanted(args):
             clone = lambda a: a.clone() if isinstance(a, torch.Tensor) \
                 else a  # noqa: E731
             self.args = tuple(tuple(clone(t) for t in a)
@@ -934,6 +974,44 @@ class _Capture:
                               for a in args)
             self.kw = dict(kw)
         return self.fn(*args, **kw)
+
+
+def _hold_captured(gk, fk, where, cap_gj=None, cap_fb=None):
+    """Holds gj_solve and fused_block on the operands a run captured
+    (:class:`_Capture`) against their plain versions: gj_solve bit for
+    bit (NaN systems aside), fused_block with equal i / done / froze and
+    amplitudes within 1e-12 of max|x|.  Returns {name: (rows, err)}."""
+    checks = {}
+    for name, cap in (("gj_solve", cap_gj), ("fused_block", cap_fb)):
+        if cap is not None and cap.args is None:
+            raise AssertionError(f"{name} never ran {where}")
+    if cap_gj is not None:
+        out_k, _ = gk.gj_solve(*cap_gj.args)
+        out_p, _ = gk.gj_solve_reference(*cap_gj.args)
+        torch.cuda.synchronize()
+        fin = ~torch.isnan(out_p)
+        if not (torch.equal(torch.isnan(out_k), ~fin)
+                and torch.equal(out_k[fin], out_p[fin])):
+            raise AssertionError(f"gj_solve {where} differs from its "
+                                 "plain version")
+        checks["gj_solve"] = (cap_gj.args[0].shape[0], 0.0)
+    if cap_fb is not None:
+        a, kw = cap_fb.args, cap_fb.kw
+        out_k = fk.fused_block(*a, **kw)
+        out_p = fk.fused_block_reference(*a, **kw)
+        torch.cuda.synchronize()
+        for k in (0, 4, 5):
+            if not torch.equal(out_k[k], out_p[k]):
+                raise AssertionError(f"fused_block {where}: output {k} "
+                                     "differs from its plain version")
+        err = max((out_k[k] - out_p[k]).abs().max().item()
+                  for k in (1, 2, 3))
+        x_max = max(out_p[k].abs().max().item() for k in (1, 2, 3))
+        if not err <= 1e-12 * x_max:
+            raise AssertionError(f"fused_block {where}: {err} > 1e-12 * "
+                                 f"{x_max}")
+        checks["fused_block"] = (a[1].shape[0], err)
+    return checks
 
 
 def _ballast_point(rt, design, draft, ballast):
@@ -1034,35 +1112,10 @@ def headline_sweep_phase(rt, card):
         np.testing.assert_allclose(np.abs(r["Xi"][iD, iB]), np.abs(m.Xi),
                                    rtol=2e-5, atol=1e-7)
     # the kernels on the sweep's own operands at its 1024-lane rung
-    checks = {}
-    for name, cap in (("gj_solve", wf["cap_gj"]),
-                      ("fused_block", fu["cap_fb"])):
-        if cap.args is None:
-            raise AssertionError(f"{name} never ran at the 1024 rung")
-    out_k, piv_k = gk.gj_solve(*wf["cap_gj"].args)
-    out_p, piv_p = gk.gj_solve_reference(*wf["cap_gj"].args)
-    torch.cuda.synchronize()
-    fin = ~torch.isnan(out_p)
-    if not (torch.equal(torch.isnan(out_k), ~fin)
-            and torch.equal(out_k[fin], out_p[fin])):
-        raise AssertionError("gj_solve at the sweep rung differs from its "
-                             "plain version")
-    checks["gj_solve"] = (wf["cap_gj"].args[0].shape[0], 0.0)
-    a, kw = fu["cap_fb"].args, fu["cap_fb"].kw
-    out_k = fk.fused_block(*a, **kw)
-    out_p = fk.fused_block_reference(*a, **kw)
-    torch.cuda.synchronize()
-    for k in (0, 4, 5):
-        if not torch.equal(out_k[k], out_p[k]):
-            raise AssertionError(f"fused_block at the sweep rung: output "
-                                 f"{k} differs from its plain version")
-    err = max((out_k[k] - out_p[k]).abs().max().item() for k in (1, 2, 3))
-    x_max = max(out_p[k].abs().max().item() for k in (1, 2, 3))
-    if not err <= 1e-12 * x_max:
-        raise AssertionError(f"fused_block at the sweep rung: {err} > "
-                             f"1e-12 * {x_max}")
+    checks = _hold_captured(gk, fk, "at the sweep rung", wf["cap_gj"],
+                            fu["cap_fb"])
+    a = fu["cap_fb"].args
     G = fk.launch_shape(a[1].shape[1], a[1].shape[-1], a[1].dtype)[0]
-    checks["fused_block"] = (a[1].shape[0], err)
     for (mode, overlap), run in runs.items():
         res = run["res"]
         tm, tel, st = res["timing"], res["rotor_telemetry"], \
@@ -2204,8 +2257,8 @@ def fn_line(text):
 def cli_phase(rt, gk):
     """Phase 23: ``python -m raft_tpu_torch <flagship.yaml> --plot`` in a
     subprocess in a temporary directory, then ``__main__.main`` in this
-    process with the gj_solve launches counted, then the serve-stack
-    command refused."""
+    process with the gj_solve launches counted, then the serve network
+    tier refused."""
     import importlib.util
     import os
     import tempfile
@@ -2265,16 +2318,16 @@ def cli_phase(rt, gk):
         raise AssertionError("the CLI's natural frequencies differ in and "
                              "out of process")
     try:
-        cli.main(["warmup"])
+        cli.main(["serve", "--http", "0"])
     except NotImplementedError as e:
-        if "queue 1 step 12" not in str(e):
+        if "queue 1 step 12b" not in str(e):
             raise
     else:
-        raise AssertionError("'warmup' did not raise")
+        raise AssertionError("'serve --http' did not raise")
     print(f"phase cli: subprocess exit={out.returncode} wall_s={cli_s:.2f} "
           f"{plotted} | in process main_s={main_s:.3f} gj_launches="
-          f"{launches} '{fn_line(out.stdout)}' | warmup raises naming "
-          f"step 12", flush=True)
+          f"{launches} '{fn_line(out.stdout)}' | serve --http raises "
+          f"naming step 12b", flush=True)
     return dict(gj_solve=launches)
 
 
@@ -2332,6 +2385,421 @@ def checked_phase(rt, gk):
 
 
 
+# ----------------------------------------------------------- serve phases
+
+SERVE_FILLS = np.linspace(1000.0, 1210.0, 8)     # outer-column fill density
+SERVE_DRAFTS = np.linspace(0.9, 1.1, 64)
+SERVE_SWEEP_CHUNK = 8
+SERVE_CLIENTS = 4
+SERVE_BAR = 1e-12                    # served vs the un-bucketed Model
+FUSED_BAR = (1e-8, 1e-12)            # rtol, atol of max|Xi| (phase 8's)
+GRAD_BAR = 1e-8
+
+
+def _ballast_variant(rt, rho):
+    d = flagship(rt)
+    for mem in d["platform"]["members"]:
+        if mem["name"] == "outer":
+            mem["rho_fill"] = float(rho)
+    return d
+
+
+def serve_requests(rt):
+    """The serve phases' ten requests: eight flagship ballast variants
+    and two aero semis (12 cases each)."""
+    out = [_ballast_variant(rt, r) for r in SERVE_FILLS]
+    aero = aero_design(rt)
+    out.append(aero)
+    aero2 = aero_design(rt)
+    for mem in aero2["platform"]["members"]:
+        if mem["name"] == "outer":
+            mem["rho_fill"] = 1100.0
+    out.append(aero2)
+    return out
+
+
+def _engine(rt, tmp, **kw):
+    cfg = dict(device=CARD, precision="float64", window_ms=5.0,
+               cache_dir=tmp, use_result_cache=False)
+    cfg.update(kw)
+    return rt.serve.Engine(rt.serve.EngineConfig(**cfg))
+
+
+def _submit_from_clients(eng, designs, n_clients=SERVE_CLIENTS):
+    """Every design submitted from ``n_clients`` threads at once; the
+    handles in design order."""
+    import threading
+
+    handles = [None] * len(designs)
+    errors = []
+
+    def client(k):
+        try:
+            for i in range(k, len(designs), n_clients):
+                handles[i] = eng.submit(designs[i])
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    if errors:
+        raise errors[0]
+    return handles
+
+
+def _xi(res):
+    return torch.as_tensor(res.Xi)
+
+
+def serve_coalesce_phase(rt, gk, fk, tmp, fixed_point="legacy",
+                         legacy=None):
+    """The coalesce phase (legacy) and the fused phase: the ten requests
+    from four client threads through one engine, then each request alone
+    in a fresh engine and through ``Model(design, slots=bucket)``."""
+    import raft_tpu_torch.dynamics as dyn
+    import raft_tpu_torch.waterfall as wfm
+
+    designs = serve_requests(rt)
+    mode = fixed_point
+    with _engine(rt, tmp, fixed_point=mode) as eng:
+        # programs + prep warm; the flagship's bucket
+        spec = eng.evaluate(designs[0], timeout=600).bucket
+        # the served kernel's operands: gj_solve at the bucket's
+        # n_slots x nw systems, fused_block's first block in the bucket
+        if mode == "fused":
+            cap = _Capture(wfm.fused_block, None, arg=1,
+                           nodes=spec.n_nodes)
+            wfm.fused_block = cap
+        else:
+            cap = _Capture(dyn.gj_solve, spec.n_slots * spec.nw)
+            dyn.gj_solve = cap
+        gk.launches = 0
+        fk.launches = 0
+        t0 = time.perf_counter()
+        try:
+            res = [h.result(600) for h in _submit_from_clients(eng,
+                                                                designs)]
+        finally:
+            if mode == "fused":
+                wfm.fused_block = cap.fn
+            else:
+                dyn.gj_solve = cap.fn
+        wall = time.perf_counter() - t0
+        launches = dict(gj_solve=gk.launches, fused_block=fk.launches)
+        snap = eng.snapshot()
+    kernel = "fused_block" if mode == "fused" else "gj_solve"
+    (_, err), = _hold_captured(
+        gk, fk, f"in the served {mode} dispatch",
+        **({"cap_fb": cap} if mode == "fused" else {"cap_gj": cap})
+    ).values()
+    a = cap.args
+    shapes = (f"nodes.r {tuple(a[0].r.shape)} u {tuple(a[1].shape)}"
+              if mode == "fused" else f"M {tuple(a[0].shape)}")
+    held = (f"{kernel} on the served operands ({shapes}) vs its plain "
+            f"version max_abs_err={err:.3e}")
+    if not all(r.ok for r in res):
+        raise AssertionError([(r.status, r.error) for r in res])
+    dispatches = snap["dispatches"] - 1
+    if not dispatches < len(designs):
+        raise AssertionError(f"{dispatches} dispatches for "
+                             f"{len(designs)} requests")
+    if {r.backend for r in res} != {"cuda"}:
+        raise AssertionError("a request served off the card")
+    with _engine(rt, tmp, fixed_point=mode, window_ms=0.5) as eng:
+        solo = [eng.evaluate(d, timeout=600) for d in designs]
+    worst = 0.0
+    for d, r, s in zip(designs, res, solo):
+        if not torch.equal(_xi(r), _xi(s)):
+            raise AssertionError(f"{mode}: served coalesced != served "
+                                 f"alone (rid {r.rid})")
+        m = rt.Model(d, device=CARD, slots=r.bucket)
+        m.analyze_unloaded()
+        quiet(m.analyze_cases, 0, False, None, None, mode)
+        if not torch.equal(torch.as_tensor(m.Xi), _xi(r)):
+            raise AssertionError(f"{mode}: served != Model(slots=bucket)")
+        if mode == "legacy":
+            m.slots = None
+            quiet(m.analyze_cases)
+            gap = float(np.abs(m.Xi - r.Xi).max() / np.abs(m.Xi).max())
+            worst = max(worst, gap)
+            if gap > SERVE_BAR:
+                raise AssertionError(f"served vs un-bucketed {gap:.3g}")
+    if legacy is not None:
+        for r, ref in zip(res, legacy):
+            if not np.array_equal(r.solve_report["converged"],
+                                  ref.solve_report["converged"]):
+                raise AssertionError("fused flags differ from legacy")
+            scale = np.abs(ref.Xi).max()
+            np.testing.assert_allclose(
+                r.Xi, ref.Xi, rtol=FUSED_BAR[0], atol=FUSED_BAR[1] * scale)
+            worst = max(worst, float(np.abs(r.Xi - ref.Xi).max() / scale))
+    buckets = sorted({(r.bucket.nw, r.bucket.n_nodes, r.bucket.n_slots)
+                      for r in res})
+    lat = np.array([r.latency_s for r in res])
+    queued = np.array([r.queue_s for r in res])
+    occupancy = float(np.mean([r.batch_occupancy for r in res]))
+    per = {k: v / dispatches for k, v in launches.items()}
+    if launches[kernel] <= 0:
+        raise AssertionError(f"{kernel} not launched in the {mode} serve")
+    print(f"phase serve {'coalesce' if mode == 'legacy' else 'fused'}: "
+          f"requests={len(designs)} clients={SERVE_CLIENTS} window_ms=5 "
+          f"dispatches={dispatches} buckets={buckets} occupancy_mean="
+          f"{occupancy:.3f} launches="
+          f"{launches} per_dispatch={per} wall_s={wall:.3f} latency "
+          f"p50={np.percentile(lat, 50):.4f} p95="
+          f"{np.percentile(lat, 95):.4f} (of which queued, the cold "
+          f"preps: p50={np.percentile(queued, 50):.4f}) | coalesced == "
+          f"alone == "
+          f"Model(slots): torch.equal "
+          + (f"| vs un-bucketed Model max_rel={worst:.3g} (bar "
+             f"{SERVE_BAR:g})" if mode == "legacy" else
+             f"| vs legacy served max_rel={worst:.3g} flags identical")
+          + f" backend=cuda | {held}", flush=True)
+    return res, dict(launches, dispatches=dispatches)
+
+
+def _probe_loop(eng, design, stop, out):
+    while not stop.is_set():
+        out.append(eng.evaluate(design, timeout=600))
+
+
+def serve_sweep_phase(rt, gk, tmp):
+    """64 draft-scaled aero semis as one served sweep, uninterrupted and
+    under interactive load with preemption on and off."""
+    import threading
+
+    from raft_tpu_torch.sweep_fused import scale_draft
+
+    designs = [scale_draft(aero_design(rt), float(s)) for s in SERVE_DRAFTS]
+    probe = _ballast_variant(rt, 1050.0)
+    runs = {}
+    with _engine(rt, tmp, fixed_point="waterfall", preempt=True) as eng:
+        warm = eng.evaluate(probe, timeout=600)
+        t0 = time.perf_counter()
+        ref = eng.submit_sweep(designs, chunk=SERVE_SWEEP_CHUNK).result(1200)
+        runs["uninterrupted"] = (ref, time.perf_counter() - t0, [])
+        for name, preempt in (("on", True), ("off", False)):
+            eng.config.preempt = preempt
+            stop, probes = threading.Event(), []
+            h = eng.submit_sweep(designs, chunk=SERVE_SWEEP_CHUNK)
+            t = threading.Thread(target=_probe_loop,
+                                 args=(eng, probe, stop, probes))
+            t0 = time.perf_counter()
+            t.start()
+            res = h.result(1200)
+            stop.set()
+            t.join(600)
+            runs[name] = (res, time.perf_counter() - t0, probes)
+        snap = eng.snapshot()
+    for name, (res, _, probes) in runs.items():
+        if res.status != "ok":
+            raise AssertionError(f"sweep {name}: {res.status} {res.error}")
+        if not (torch.equal(torch.as_tensor(res.Xi_r),
+                            torch.as_tensor(ref.Xi_r))
+                and torch.equal(torch.as_tensor(res.Xi_i),
+                                torch.as_tensor(ref.Xi_i))):
+            raise AssertionError(f"sweep {name} != uninterrupted")
+        for p in probes:
+            if not torch.equal(_xi(p), _xi(warm)):
+                raise AssertionError("an interactive probe changed bits")
+    if runs["on"][0].preemptions < 1:
+        raise AssertionError("the loaded sweep never yielded")
+    p95 = {k: (float(np.percentile([p.latency_s for p in v[2]], 95))
+               if v[2] else float("nan")) for k, v in runs.items()}
+    loaded = " | ".join(
+        f"preempt_{k}: sweep_s={runs[k][1]:.3f} yields="
+        f"{runs[k][0].preemptions} suspend_s={runs[k][0].suspend_s:.3f} "
+        f"probes={len(runs[k][2])} interactive_p50_s="
+        f"{float(np.percentile([p.latency_s for p in runs[k][2]], 50)):.4f}"
+        f" p95_s={p95[k]:.4f}" for k in ("on", "off"))
+    print(f"phase serve sweep: designs={len(designs)} chunks="
+          f"{ref.n_chunks} (chunk {SERVE_SWEEP_CHUNK} x 12 cases) "
+          f"uninterrupted_s={runs['uninterrupted'][1]:.3f} (its preps "
+          f"included) | {loaded} | resumed == uninterrupted: "
+          f"torch.equal converged={int(ref.report['converged'].sum())}/"
+          f"{ref.report['converged'].size} sweep_preemptions="
+          f"{snap['sweep_preemptions']}", flush=True)
+
+
+def serve_faults_phase(rt, tmp, ref):
+    """Chaos faults on the card, each to its terminal status, batch-mates'
+    bits unchanged; a result-cache hit without a dispatch."""
+    import os
+
+    a, b = _ballast_variant(rt, SERVE_FILLS[0]), \
+        _ballast_variant(rt, SERVE_FILLS[1])
+    seen = {}
+    with _engine(rt, tmp, window_ms=50.0, chaos="nan_lane@3:5") as eng:
+        eng.evaluate(a, timeout=600)                 # rid 1
+        eng.evaluate(b, timeout=600)                 # rid 2
+        ra, rb = [h.result(600) for h in (eng.submit(a), eng.submit(b))]
+    if not (ra.ok and ra.solve_report["nonfinite"].all()
+            and rb.ok and not rb.solve_report["nonfinite"].any()
+            and torch.equal(_xi(rb), _xi(ref[1]))
+            and ra.batch_requests == 2):
+        raise AssertionError("nan_lane: quarantine or batch-mate bits")
+    seen["nan_lane"] = "ok, own lanes nonfinite, mate bit-identical"
+    with _engine(rt, tmp, chaos="backend_error*1:3") as eng:
+        r = eng.evaluate(a, timeout=600)
+        snap = eng.snapshot()
+    if not (r.ok and snap["dispatch_retries"] == 1
+            and torch.equal(_xi(r), _xi(ref[0]))):
+        raise AssertionError("backend_error: not retried to the same bits")
+    seen["backend_error"] = "retried -> ok, bit-identical"
+    with _engine(rt, tmp, watchdog_s=1.0, breaker_cooldown_s=2.0,
+                 dispatch_retries=0,
+                 chaos="dispatch_stall=3.0*1:9") as eng:
+        t0 = time.perf_counter()
+        r1 = eng.evaluate(a, timeout=600)        # the stalled dispatch
+        stall_s = time.perf_counter() - t0
+        r2 = eng.evaluate(a, timeout=600)
+        time.sleep(2.5)                          # the breaker's cooldown
+        r3 = eng.evaluate(a, timeout=600)
+        snap = eng.snapshot()
+    statuses = [r1.status, r2.status, r3.status]
+    if statuses != ["watchdog_timeout", "rejected_circuit", "ok"] \
+            or not torch.equal(_xi(r3), _xi(ref[0])):
+        raise AssertionError(f"watchdog/breaker cycle: {statuses}")
+    seen["dispatch_stall"] = f"watchdog_timeout after {stall_s:.2f} s"
+    seen["breaker"] = "rejected_circuit, then half-open probe ok"
+    cache = os.path.join(tmp, "results")
+    with _engine(rt, cache, use_result_cache=True) as eng:
+        r1 = eng.evaluate(a, timeout=600)
+        for _ in range(500):
+            if eng.snapshot()["result_cache_stores"]:
+                break
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        r2 = eng.evaluate(a, timeout=600)
+        hit_s = time.perf_counter() - t0
+        snap = eng.snapshot()
+    if not (snap["result_cache_hits"] == 1 and snap["dispatches"] == 1
+            and torch.equal(_xi(r1), _xi(r2))):
+        raise AssertionError("result cache: no bit-identical hit")
+    if {x.backend for x in (ra, rb, r, r3, r1, r2)} != {"cuda"}:
+        raise AssertionError("a request served off the card")
+    print(f"phase serve faults: {seen} | result cache hit: same bits, "
+          f"dispatches=1 hit_s={hit_s:.4f} cold_s={r1.latency_s:.4f} | "
+          f"every ok result backend=cuda", flush=True)
+
+
+def _serve_process(root, cache, lines):
+    import json
+    import os
+
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "raft_tpu_torch", "serve", "--cache-dir",
+         cache, "--device", CARD],
+        input="".join(json.dumps({"design": d}) + "\n" for d in lines),
+        capture_output=True, text=True, timeout=600, env=env, cwd=root)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"serve exit {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}")
+    docs = [json.loads(ln) for ln in out.stdout.splitlines()
+            if ln.startswith("{")]
+    events = [d["event"] for d in docs]
+    if events != ["ready", "result", "result", "shutdown"] or not all(
+            d["status"] == "ok" for d in docs[1:3]):
+        raise AssertionError(f"serve lines: {out.stdout[-3000:]}")
+    return docs, wall
+
+
+def serve_restart_phase(rt, tmp):
+    """A fresh ``python -m raft_tpu_torch serve`` process (stdin design
+    lines) on an empty cache directory, then a fresh one on the same
+    directory with the same designs (manifest replayed, prep and result
+    caches warm) and one with two unseen ballast variants (the manifest
+    alone)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cache = os.path.join(tmp, "restart")
+    seen = [_plain(_ballast_variant(rt, r)) for r in (1000.0, 1030.0)]
+    unseen = [_plain(_ballast_variant(rt, r)) for r in (1015.0, 1045.0)]
+    cold, cold_s = _serve_process(root, cache, seen)
+    warm, warm_s = _serve_process(root, cache, seen)
+    fresh, fresh_s = _serve_process(root, cache, unseen)
+    for a, b in zip(cold[1:3], warm[1:3]):
+        if a["std"] != b["std"]:
+            raise AssertionError("warm restart changed the answer")
+    rep = {name: d[0].get("warmup", {}) for name, d in
+           (("cold", cold), ("warm", warm), ("unseen", fresh))}
+    if rep["warm"].get("nvcc_builds") != 0 \
+            or rep["warm"].get("n_warmed", 0) < 1:
+        raise AssertionError(f"warm restart: {rep['warm']}")
+    first = {name: f"{d[1]['latency_s']:.4f} (queue {d[1]['queue_s']:.4f})"
+             for name, d in (("cold", cold), ("warm", warm),
+                             ("unseen", fresh))}
+    print(f"phase serve warm restart: replayed buckets cold="
+          f"{rep['cold'].get('n_warmed')} warm={rep['warm']['n_warmed']} "
+          f"unseen={rep['unseen'].get('n_warmed')} | nvcc_builds warm="
+          f"{rep['warm']['nvcc_builds']} libraries_loaded warm="
+          f"{rep['warm'].get('libraries_loaded')} programs_built warm="
+          f"{rep['warm'].get('programs_built')} warmup_s warm="
+          f"{rep['warm'].get('wall_s')} | first-request latency cold="
+          f"{first['cold']} warm={first['warm']} (result cache hits "
+          f"{warm[-1]['result_cache_hits']}, prep cache hits "
+          f"{warm[-1]['prep_cache_hits']}) unseen={first['unseen']} "
+          f"(manifest only) | process wall_s cold={cold_s:.1f} warm="
+          f"{warm_s:.1f} unseen={fresh_s:.1f} | same std bits", flush=True)
+
+
+def serve_grad_phase(rt, gk, tmp):
+    """``Engine.submit_grad`` on the flagship against
+    ``grad.design_value_and_grad`` on the card."""
+    from raft_tpu_torch.grad import design_value_and_grad
+
+    design = flagship(rt)
+    obj = {"metric": "rao_pitch_peak", "knobs": ["draft", "ballast",
+                                                 "col_diam",
+                                                 "line_length"]}
+    with _engine(rt, tmp) as eng:
+        gk.launches = 0
+        gk.launches_backward = 0
+        t0 = time.perf_counter()
+        r = eng.evaluate_grad(design, obj, timeout=900)
+        served_s = time.perf_counter() - t0
+        launches = (gk.launches, gk.launches_backward)
+    if not r.ok:
+        raise AssertionError(f"served grad {r.status}: {r.error}")
+    t0 = time.perf_counter()
+    value, grad = design_value_and_grad(design, "rao_pitch_peak",
+                                        device=CARD)
+    direct_s = time.perf_counter() - t0
+    gap = abs(r.value - value) / abs(value)
+    g_ref = np.array([grad[k] for k in obj["knobs"]])
+    g = np.array([r.gradient[k] for k in obj["knobs"]])
+    ggap = float(np.abs(g - g_ref).max() / np.abs(g_ref).max())
+    if gap > GRAD_BAR or ggap > GRAD_BAR:
+        raise AssertionError(f"served grad off: {gap:.3g} {ggap:.3g}")
+    print(f"phase serve grad: flagship rao_pitch_peak value_rel={gap:.3g} "
+          f"grad_rel={ggap:.3g} (bar {GRAD_BAR:g}) served_s={served_s:.2f} "
+          f"direct_s={direct_s:.2f} gj_launches forward={launches[0]} "
+          f"backward={launches[1]}", flush=True)
+    return dict(gj_solve=launches[0], gj_solve_backward=launches[1])
+
+
+def serve_phases(rt, gk, fk):
+    """Phases 25-30: the serving engine on the card."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        legacy, l_co = serve_coalesce_phase(rt, gk, fk, tmp)
+        _, l_fu = serve_coalesce_phase(rt, gk, fk, tmp, "fused", legacy)
+        serve_sweep_phase(rt, gk, tmp)
+        serve_faults_phase(rt, tmp, legacy)
+        serve_restart_phase(rt, tmp)
+        l_grad = serve_grad_phase(rt, gk, tmp)
+    return dict(coalesce=l_co, fused=l_fu, grad=l_grad)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2383,7 +2851,11 @@ def main():
     l_omdao_bem = omdao_bem_phase(rt, bg, gk, bem_model)
     l_cli = cli_phase(rt, gk)
     l_checked = checked_phase(rt, gk)
-    new_paths = dict(omdao=l_omdao["gj_solve"],
+    l_serve = serve_phases(rt, gk, fk)
+    new_paths = dict(serve=l_serve["coalesce"]["gj_solve"],
+                     serve_fused=l_serve["fused"]["fused_block"],
+                     serve_grad=l_serve["grad"]["gj_solve"],
+                     omdao=l_omdao["gj_solve"],
                      backward_omdao=l_omdao["gj_solve_backward"],
                      cli=l_cli["gj_solve"], checked=l_checked["gj_solve"],
                      **{f"omdao_bem_{k}": v for k, v in l_omdao_bem.items()})
@@ -2412,14 +2884,24 @@ def main():
              launches_omdao=l_omdao["gj_solve"],
              launches_backward_omdao=l_omdao["gj_solve_backward"],
              launches_cli=l_cli["gj_solve"],
-             launches_checked=l_checked["gj_solve"], **g64, **bwd64),
+             launches_checked=l_checked["gj_solve"],
+             launches_serve=l_serve["coalesce"]["gj_solve"],
+             launches_serve_per_dispatch=l_serve["coalesce"]["gj_solve"]
+             / l_serve["coalesce"]["dispatches"],
+             launches_serve_fused=l_serve["fused"]["gj_solve"],
+             launches_serve_grad=l_serve["grad"]["gj_solve"],
+             launches_backward_serve_grad=l_serve["grad"][
+                 "gj_solve_backward"], **g64, **bwd64),
         dict(name="fused_block", route="cuda",
              source="raft_tpu_torch/csrc/fused_block.cu",
              replaces="raft_tpu/pallas_kernels.py:428",
              launches=l_fu["fused_block"],
              launches_aero=l_aero["fused"]["fused_block"],
              launches_bridled=l_bridled["fused"]["fused_block"],
-             launches_sweep_fused=l_sweep["fused"]["fused_block"], **f64),
+             launches_sweep_fused=l_sweep["fused"]["fused_block"],
+             launches_serve_fused=l_serve["fused"]["fused_block"],
+             launches_serve_fused_per_dispatch=l_serve["fused"][
+                 "fused_block"] / l_serve["fused"]["dispatches"], **f64),
         dict(name="tile_inv", route="cuda",
              source="raft_tpu_torch/csrc/tile_inv.cu",
              replaces="raft_tpu/pallas_kernels.py:208",

@@ -19,6 +19,9 @@ Device and dtype policy:
   kernels of ``kernels.bem_gj`` (pivot-tile inverse, products).
 - Host stages — statics, the mooring Newton, the BEM mesh and Rankine
   part, the response metrics — run in float64 on the CPU.
+- ``serve.Engine`` serves requests: it coalesces them per shape bucket
+  into one fixed-shape dispatch on the card, with the same bits as
+  ``Model(design, slots=bucket)``.
 - The working dtype of the dynamics is float64 by default;
   ``precision="float32"`` is accepted.  TF32 is off on the card.
 
@@ -28,5 +31,6 @@ The package imports torch, NumPy and the standard library only.
 from raft_tpu_torch import designs
 from raft_tpu_torch.kernels import gj_solve
 from raft_tpu_torch.model import Model, run_raft
+from raft_tpu_torch import serve
 
-__all__ = ["Model", "run_raft", "designs", "gj_solve"]
+__all__ = ["Model", "run_raft", "designs", "gj_solve", "serve"]

@@ -6,8 +6,7 @@ raft_tpu_torch/parametric.py with the implicit rules of
 design knobs runs through one adjoint per fixed point instead of the
 unrolled iterations.  Forward values are those of the plain solves.
 
-The objective surface (the served grad request waits for the serve
-stack, ROADMAP.md queue 1 step 12):
+The objective surface (what ``serve.Engine.submit_grad`` takes):
 
  - ``metric``: one of :data:`GRAD_METRICS`;
  - ``knobs``: a non-empty subset of :data:`GRAD_KNOBS`;

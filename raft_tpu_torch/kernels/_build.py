@@ -6,6 +6,12 @@ into ``build/raft_tpu_torch/``, once per content of those files and the
 flags.  :func:`start` runs ``nvcc`` in the background, so several
 kernels build at once; :func:`finish` waits for it and loads the
 library.  A failed build raises ``RuntimeError``; there is no fallback.
+
+``counters`` counts, in this process, the ``nvcc`` builds started and
+the libraries loaded (the serving engine's first-touch accounting,
+serve/cache.py ``CompileWatcher``); :func:`library_digests` names each
+kernel library by the digest that keys it (the serving cache's flag
+surface).
 """
 
 import ctypes
@@ -20,6 +26,33 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "raft_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 TIMEOUT_S = 600
+
+#: the kernel sources and the headers each includes, by library name
+LIBRARIES = {
+    "gj_solve": ("gj_solve.cu", ("gj_elim.cuh",)),
+    "fused_block": ("fused_block.cu", ("gj_elim.cuh",)),
+    "tile_inv": ("tile_inv.cu", ("gj_elim.cuh",)),
+    "mm": ("mm.cu", ()),
+}
+
+counters = {"nvcc_builds": 0, "libraries_loaded": 0}
+
+
+def digest(source, headers):
+    """The key of a library: the flags and the content of its source and
+    headers."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in (source, *headers):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:12]
+
+
+def library_digests():
+    """{library name: digest} of every kernel library of the port."""
+    return {name: digest(os.path.join(CSRC, src),
+                         [os.path.join(CSRC, h) for h in hdrs])
+            for name, (src, hdrs) in LIBRARIES.items()}
 
 
 def nvcc():
@@ -43,13 +76,9 @@ def start(source, headers, build_dir, compiler, verbose=False):
     """Start building ``source`` (its content and that of ``headers``
     key the library) unless the library exists; ``verbose`` always
     compiles, with ``-Xptxas -v``."""
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in (source, *headers):
-        with open(path, "rb") as fh:
-            digest.update(fh.read())
     name = os.path.splitext(os.path.basename(source))[0]
     lib_path = os.path.join(build_dir,
-                            f"lib{name}_{digest.hexdigest()[:12]}.so")
+                            f"lib{name}_{digest(source, headers)}.so")
     if os.path.exists(lib_path) and not verbose:
         return Job(source, lib_path, None, None)
     os.makedirs(build_dir, exist_ok=True)
@@ -61,6 +90,7 @@ def start(source, headers, build_dir, compiler, verbose=False):
                                 stderr=subprocess.PIPE, text=True)
     except OSError as e:
         raise RuntimeError(f"cannot run {cmd[0]}: {e}") from e
+    counters["nvcc_builds"] += 1
     return Job(source, lib_path, proc, tmp)
 
 
@@ -83,4 +113,5 @@ def finish(job, verbose=False):
         if verbose:
             print(err, end="")
         os.replace(job.tmp, job.lib_path)
+    counters["libraries_loaded"] += 1
     return ctypes.CDLL(job.lib_path)

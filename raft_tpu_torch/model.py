@@ -208,12 +208,18 @@ class Model:
     mixed_precision : bool
         bf16 operands with float32 accumulation in the fixed point's
         assembly (raft_tpu_torch/precision.py); off by default.
+    slots : raft_tpu_torch.serve.buckets.BucketSpec | None
+        Serving bucket: ``analyze_cases`` then packs its cases into the
+        bucket's lanes (nodes zero-padded, padding lanes replicating
+        lane 0) and runs the serving engine's dispatch of that bucket, so
+        its results are bit-identical to the same request served by
+        ``raft_tpu_torch.serve.Engine`` in any megabatch of the bucket
+        (in the same ``fixed_point`` mode).  None keeps the exact-shape
+        solve, which agrees with the served one to round-off.
     """
 
     def __init__(self, design, precision=None, device=None, slots=None,
                  mixed_precision=False):
-        if slots is not None:
-            raise _not_ported("serving buckets (slots=)", 12)
         if not isinstance(design, dict):
             design = load_design(design)
         self.design = design
@@ -267,6 +273,7 @@ class Model:
             else "float64"
         self.mixed_precision = bool(mixed_precision)
 
+        self.slots = slots
         self.statics = None
         self._ICG_turbine = None
         self.results = {}
@@ -652,11 +659,16 @@ class Model:
         first (``run_bem`` at every case wave heading, on a uniform heading
         grid), unless coefficients are already loaded; with ``meshDir``
         it goes through ``preprocess_hams`` and also writes the HAMS/WAMIT
-        tree there.  A delegated ``solver`` raises ``NotImplementedError``.
+        tree there.
+
+        solver : a replacement of the batched dynamics dispatch, a
+            callable ``(model, args, aux) -> (xr, xi, report)`` returning
+            [ncase, 6, nw] response halves and a ``SolveReport`` over
+            [ncase] (tensors or NumPy arrays).  ``RAFT_OMDAO``'s engine
+            mode routes the solve through a running serving engine this
+            way; the host stages before and after stay here.
         """
         check_mode(fixed_point, self.mixed_precision)
-        if solver is not None:
-            raise _not_ported("delegated solves (solver=)", 12)
         if runPyHAMS and any(m.potMod for m in self.members):
             if self.bem_coeffs is None:
                 # solve at every distinct case wave heading so off-axis
@@ -692,10 +704,21 @@ class Model:
         nLines = T_moor.shape[-1] // 2
 
         # ---- the batched device solve ----
-        if fixed_point == "legacy" and self._pipeline is None:
+        if fixed_point == "legacy" and self._pipeline is None \
+                and solver is None and self.slots is None:
             self._pipeline = self.case_pipeline_fn()
         with timer("rao_solve"):
-            if fixed_point == "legacy":
+            if solver is not None:
+                xr, xi, report = solver(self, args, aux)
+                xr, xi = torch.as_tensor(xr), torch.as_tensor(xi)
+            elif self.slots is not None:
+                from raft_tpu_torch.serve.buckets import \
+                    slotted_case_dispatch
+
+                xr, xi, report = slotted_case_dispatch(
+                    self, self.slots, args, mode=fixed_point,
+                    block=block_iters)
+            elif fixed_point == "legacy":
                 xr, xi, report = self._pipeline(*case_args_from_numpy(
                     args, self.device, self.dtype))
             else:

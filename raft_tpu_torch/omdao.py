@@ -23,8 +23,10 @@ modeling option ``device`` (``cuda`` by default, raising without a card;
 ``'cpu'`` runs the case dynamics on the CPU), so its Gauss–Jordan solves
 are launches of the hand-written kernel on the card.  The exact partials
 go through the port's reverse-mode adjoints (raft_tpu_torch/grad).  The
-engine modes (``engine``, ``engine_endpoint``) wait for the serve stack
-and raise ``NotImplementedError`` (ROADMAP.md, queue 1 step 12).
+``engine`` mode routes every solve (and every partials row) through a
+live in-process ``raft_tpu_torch.serve.Engine``; ``engine_endpoint``
+(the HTTP tier) raises ``NotImplementedError`` (ROADMAP.md, queue 1
+step 12b).
 """
 
 import contextlib
@@ -216,10 +218,14 @@ class RAFT_OMDAO(_ComponentBase):
     to use the in-package panel solver where the reference shells out
     to HAMS.
 
-    Engine mode (modeling option ``engine`` or ``engine_endpoint``, the
-    JAX package's route of every solve through a running serve engine)
-    raises ``NotImplementedError`` until the serve stack is ported
-    (ROADMAP.md, queue 1 step 12).
+    Engine mode (modeling option ``engine``, a live
+    ``raft_tpu_torch.serve.Engine``): compute() keeps its host stages and
+    submits the dynamics to the engine (``Model.analyze_cases(solver=)``),
+    so the solve is bit-identical to ``Model(design, slots=bucket)`` in
+    the engine's mode; compute_partials takes each row as a served grad
+    request (``Engine.evaluate_grad``).  ``engine_endpoint`` (a serve
+    HTTP tier) raises ``NotImplementedError`` until the network tier is
+    ported (ROADMAP.md, queue 1 step 12b).
     """
 
     def initialize(self):
@@ -777,16 +783,68 @@ class RAFT_OMDAO(_ComponentBase):
         return design, np.array(case_mask)
 
     # ----------------------------------------------------------- compute
-    def _refuse_engine(self, modeling_opt):
-        """The engine modes route every solve through a running serve
-        engine, which is not ported yet."""
-        if (modeling_opt.get("engine") is not None
-                or modeling_opt.get("engine_endpoint")):
+    def _engine(self, modeling_opt):
+        """The live engine of the ``engine`` mode, or None; the HTTP
+        endpoint mode raises (the network tier is not ported yet)."""
+        if modeling_opt.get("engine_endpoint"):
             from raft_tpu_torch.model import _not_ported
 
             raise _not_ported(
-                "RAFT_OMDAO's engine modes (modeling options 'engine' and "
-                "'engine_endpoint', the serve stack)", 12)
+                "RAFT_OMDAO's 'engine_endpoint' mode (the serve network "
+                "tier)", "12b")
+        return modeling_opt.get("engine")
+
+    def _engine_solver(self, engine, modeling_opt):
+        """The dynamics dispatch of ``Model.analyze_cases(solver=)`` that
+        submits the design to a running serve engine."""
+        if modeling_opt.get("run_native_BEM"):
+            raise NotImplementedError(
+                "modeling option 'engine' cannot be combined with "
+                "'run_native_BEM': the serve engine preps designs without "
+                "a potential-flow stage, so the served solve would not "
+                "see the BEM coefficients")
+        if modeling_opt.get("trim_ballast", 0):
+            raise NotImplementedError(
+                "modeling option 'engine' cannot be combined with "
+                "trim_ballast != 0: the serve engine preps the design "
+                "exactly as submitted (no ballast trim), so the served "
+                "solve would run an untrimmed design")
+        from raft_tpu_torch.health import SolveReport
+
+        timeout = float(modeling_opt.get("engine_timeout_s", 600.0))
+
+        def solve(model, args, aux):
+            res = engine.evaluate(model.design, timeout=timeout)
+            if res.status != "ok":
+                raise RuntimeError(
+                    f"RAFT_OMDAO engine solve failed "
+                    f"(status={res.status}): {res.error}")
+            rep = SolveReport(**{k: res.solve_report[k]
+                                 for k in SolveReport._fields})
+            return (np.ascontiguousarray(res.Xi.real),
+                    np.ascontiguousarray(res.Xi.imag), rep)
+
+        return solve
+
+    def _served_partials(self, engine, design, theta, modeling_opt):
+        """{metric: grad row [4]} through served grad requests, one per
+        output row."""
+        from raft_tpu_torch.grad.response import GRAD_KNOBS
+        from raft_tpu_torch.parametric import PARAM_NAMES
+
+        timeout = float(modeling_opt.get("engine_timeout_s", 600.0))
+        rows = {}
+        for metric in _PARTIAL_OUTPUTS.values():
+            objective = {"metric": metric, "knobs": list(GRAD_KNOBS),
+                         "theta": [float(t) for t in theta]}
+            res = engine.evaluate_grad(design, objective, timeout=timeout)
+            if res.status != "ok":
+                raise RuntimeError(
+                    f"RAFT_OMDAO served grad failed for {metric} "
+                    f"(status={res.status}): {res.error}")
+            rows[metric] = np.asarray(
+                [res.gradient[p] for p in PARAM_NAMES], np.float64)
+        return rows
 
     def _scale_theta(self, inputs):
         """Current design-scale vector from the derivative inputs."""
@@ -800,7 +858,7 @@ class RAFT_OMDAO(_ComponentBase):
 
         modeling_opt = self.options["modeling_options"]
         analysis_options = self.options["analysis_options"]
-        self._refuse_engine(modeling_opt)
+        engine = self._engine(modeling_opt)
         design, case_mask = self._rebuild_design(inputs, discrete_inputs)
         if modeling_opt.get("derivatives"):
             from raft_tpu_torch.parametric import apply_design_scales
@@ -827,7 +885,9 @@ class RAFT_OMDAO(_ComponentBase):
         )
         if modeling_opt.get("run_native_BEM"):
             model.run_bem()
-        model.analyze_cases()
+        solver = None if engine is None \
+            else self._engine_solver(engine, modeling_opt)
+        model.analyze_cases(solver=solver)
         results = model.calc_outputs()
 
         for name, _ in self.list_outputs(out_stream=None, all_procs=True):
@@ -926,8 +986,10 @@ class RAFT_OMDAO(_ComponentBase):
         partial remains undeclared, exactly like the reference.
         Incompatible with ``run_native_BEM`` and ``trim_ballast`` (the
         traced twin models neither; _check_derivative_options refuses
-        the combination in setup() and here).  The engine modes raise
-        (ROADMAP.md, queue 1 step 12).
+        the combination in setup() and here).  In the ``engine`` mode each
+        row is a served grad request (``Engine.evaluate_grad``), the same
+        adjoint on the engine's device; ``engine_endpoint`` raises
+        (ROADMAP.md, queue 1 step 12b).
 
         The draft column is exact within a topology cell: strip counts
         jump at member-length multiples of dls_max.
@@ -940,15 +1002,19 @@ class RAFT_OMDAO(_ComponentBase):
                 "compute_partials needs modeling option 'derivatives'")
         # guard again here: options dicts are mutable after setup()
         _check_derivative_options(modeling_opt)
-        self._refuse_engine(modeling_opt)
+        engine = self._engine(modeling_opt)
         if discrete_inputs is None:
             discrete_inputs = self._discrete_inputs \
                 if hasattr(self, "_discrete_inputs") else {}
         design, _mask = self._rebuild_design(inputs, discrete_inputs)
         theta = self._scale_theta(inputs)
-        rows = self._adjoint_partials(design, theta, modeling_opt)
-        if rows is None:
-            rows = self._reverse_partials(design, theta, modeling_opt)
+        if engine is not None:
+            rows = self._served_partials(engine, design, theta,
+                                         modeling_opt)
+        else:
+            rows = self._adjoint_partials(design, theta, modeling_opt)
+            if rows is None:
+                rows = self._reverse_partials(design, theta, modeling_opt)
         for out_name, metric in _PARTIAL_OUTPUTS.items():
             row = np.asarray(rows[metric])
             for in_name, pname in _SCALE_INPUTS.items():

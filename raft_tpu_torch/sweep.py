@@ -22,8 +22,9 @@ The reference's parameter sweep is a serial loop of full model runs
    runs on a worker thread while the host prepares chunk k+1.
 
 One CUDA device (or the CPU) is the supported case; more than one device
-raises ``NotImplementedError`` (ROADMAP.md, queue 1 step 8), as does
-routing through the serving buckets (``via_buckets``, step 12).
+raises ``NotImplementedError`` (ROADMAP.md, queue 1 step 8).
+``via_buckets=True`` dispatches the dynamics through the serving
+buckets (raft_tpu_torch/sweep_buckets.py).
 
 Typical use::
 
@@ -47,6 +48,7 @@ from raft_tpu_torch.geometry import HydroNodes
 from raft_tpu_torch.health import FailedPoint, SolveReport
 from raft_tpu_torch.model import Model, _not_ported, make_case_dynamics
 from raft_tpu_torch.resilience import SolveRetryPolicy
+from raft_tpu_torch.sweep_buckets import grouped_sweep_pipeline
 from raft_tpu_torch.utils.placement import resolve_device
 from raft_tpu_torch.utils.profiling import logger
 from raft_tpu_torch.waterfall import check_mode, grouped_waterfall_pipeline
@@ -294,8 +296,11 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
         runs on a worker thread while the host prepares chunk k+1, and
         its results are fetched once chunk k+1 is dispatched.  Results
         are those of the serial loop.
-    via_buckets : True raises ``NotImplementedError`` (ROADMAP.md, queue
-        1 step 12: it needs the serving layer's slot executables).
+    via_buckets : True dispatches the first solve through the serving
+        engine's fixed-shape buckets, in the ``fixed_point`` mode
+        (raft_tpu_torch/sweep_buckets.py), recording each bucket in the
+        serve warm-up manifest; equal to the sweep's own pipeline to
+        round-off.
     tracer : raft_tpu_torch.trace.Tracer | None
         Records each chunk's ``prep`` span and its ``dynamics`` span.
     fixed_point, block_iters : the engine of the first solve
@@ -319,9 +324,6 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
     ``n_prep_batched`` and ``n_prep_solo`` count the designs each prep
     path took (checkpointed chunks count in neither).
     """
-    if via_buckets:
-        raise _not_ported("sweeps through the serving buckets "
-                         "(via_buckets)", 12)
     dev = sweep_device(device)
     check_mode(fixed_point)
     retry_policy = SolveRetryPolicy.from_flag(retry_nonconverged)
@@ -487,7 +489,10 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
                                 device=dev, dtype=m0.dtype)
                 for i in range(len(preps[fill][2])))
             dev_in = (nodes_b,) + args_b
-            if fixed_point == "legacy":
+            if via_buckets:
+                pipeline = grouped_sweep_pipeline(
+                    m0, mode=fixed_point, block=block_iters)
+            elif fixed_point == "legacy":
                 pipeline = _sweep_pipeline(m0, m0.nIter, 0.8)
             else:
                 pipeline = grouped_waterfall_pipeline(

@@ -29,9 +29,10 @@ card, the wind-case chunks' dynamics run on a worker thread while the
 host computes the next chunk's rotor loads (the case-axis overlap).
 ``run_design_sweep(batched_prep=True)`` prepares the designs' geometry,
 statics and added mass in lane blocks on the card
-(raft_tpu_torch/batched_prep.py).  More than one device and the serving
-buckets (``via_buckets``) raise ``NotImplementedError`` naming their
-ROADMAP.md step.
+(raft_tpu_torch/batched_prep.py).  ``via_buckets=True`` dispatches the
+dynamics through the serving buckets (raft_tpu_torch/sweep_buckets.py).
+More than one device raises ``NotImplementedError`` naming its ROADMAP.md
+step.
 """
 
 import copy
@@ -56,8 +57,8 @@ from raft_tpu_torch.mooring import (
 )
 from raft_tpu_torch.resilience import SolveRetryPolicy
 from raft_tpu_torch.statics import compute_statics
-from raft_tpu_torch.model import _not_ported
 from raft_tpu_torch.sweep import _Done, pad_and_stack_nodes, sweep_device
+from raft_tpu_torch.sweep_buckets import fused_bucket_pipeline
 from raft_tpu_torch.trace import Tracer
 from raft_tpu_torch.utils.placement import HOST_DTYPE, host_threads
 from raft_tpu_torch.utils.profiling import logger
@@ -443,7 +444,7 @@ def _chunked_aero_dynamics(model0, cases, wind, aero_on, pitch_mean,
                            make_dev_args, nd_aero, nd_flat, return_xi,
                            retry_nonconverged, label, tracer,
                            overlap="auto", fixed_point="legacy",
-                           block_iters=None):
+                           block_iters=None, via_buckets=False):
     """The rotor second pass -> dynamics hand-off, split along the
     wind-case axis (:func:`_overlap_case_chunks`).  On the card each
     chunk's dynamics runs on a worker thread, so it overlaps the host's
@@ -466,7 +467,11 @@ def _chunked_aero_dynamics(model0, cases, wind, aero_on, pitch_mean,
     a_hub = np.zeros((nd_aero, nc, nw))
     b_hub = np.zeros((nd_aero, nc, nw))
     F_aero2 = np.zeros((nd_aero, nc, 6))
-    if fixed_point == "legacy":
+    if via_buckets:
+        pipeline = fused_bucket_pipeline(model0, return_xi,
+                                         mode=fixed_point,
+                                         block=block_iters)
+    elif fixed_point == "legacy":
         pipeline = _dynamics_pipeline(model0, return_xi)
     else:
         pipeline = fused_waterfall_pipeline(
@@ -642,10 +647,7 @@ def _design_mooring(F_prp, nc, mass, V, rCG, rM, AWP, moor, bridles, model0):
     return tuple(o.detach().numpy()[:, inv].copy() for o in out)
 
 
-def _check_sweep_args(device, via_buckets, fixed_point):
-    if via_buckets:
-        raise _not_ported("sweeps through the serving buckets "
-                         "(via_buckets)", 12)
+def _check_sweep_args(device, fixed_point):
     check_mode(fixed_point)
     return sweep_device(device)
 
@@ -684,8 +686,11 @@ def run_draft_ballast_sweep(
         its chrome trace there.
     fixed_point, block_iters : the first solve's engine (``legacy``,
         ``waterfall`` or ``fused``); the bounded retry is legacy.
-    via_buckets : True raises ``NotImplementedError`` (ROADMAP.md,
-        queue 1 step 12).
+    via_buckets : True dispatches the first solve through the serving
+        engine's fixed-shape buckets, in the ``fixed_point`` mode
+        (raft_tpu_torch/sweep_buckets.py), recording each bucket in the
+        serve warm-up manifest; equal to the sweep's own pipeline to
+        round-off.
     batched_prep : True raises ``NotImplementedError``: this sweep
         prepares one variant per draft, and has no batched prep in the
         JAX package either.
@@ -700,7 +705,7 @@ def run_draft_ballast_sweep(
             "one variant per draft, and the JAX package's batched prep "
             "serves run_design_sweep and run_sweep only (ROADMAP.md, queue "
             "3 item 11)")
-    dev = _check_sweep_args(device, via_buckets, fixed_point)
+    dev = _check_sweep_args(device, fixed_point)
     t_start = time.perf_counter()
     tracer = tracer or Tracer("fused_sweep")
     model0 = Model(base_design, precision=precision, device=dev)
@@ -814,7 +819,7 @@ def run_draft_ballast_sweep(
             model0, cases, wind, aero_on, r6[:, :, 4], make_dev_args, nd,
             nd, return_xi, retry_nonconverged, f"fused sweep {nD}x{nB}",
             tracer, overlap=overlap, fixed_point=fixed_point,
-            block_iters=block_iters)
+            block_iters=block_iters, via_buckets=bool(via_buckets))
     std = sol["std"]
 
     # ---- metrics (the reference sweep's getOutputs,
@@ -990,7 +995,7 @@ def run_design_sweep(
     ``n_prep_batched`` and ``n_prep_solo``, the designs each prep path
     took.
     """
-    dev = _check_sweep_args(device, via_buckets, fixed_point)
+    dev = _check_sweep_args(device, fixed_point)
     t_start = time.perf_counter()
     tracer = tracer or Tracer("design_sweep")
     model0 = Model(designs[0], precision=precision, device=dev)
@@ -1123,7 +1128,7 @@ def run_design_sweep(
             model0, cases, wind, aero_on, r6[:, :, 4], make_dev_args, nd,
             nd_pad, return_xi, retry_nonconverged, f"design sweep x{nd}",
             tracer, overlap=overlap, fixed_point=fixed_point,
-            block_iters=block_iters)
+            block_iters=block_iters, via_buckets=bool(via_buckets))
 
     res = {
         "mass": mass_all,

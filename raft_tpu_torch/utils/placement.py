@@ -16,6 +16,7 @@
 """
 
 import contextlib
+import threading
 
 import torch
 
@@ -58,6 +59,14 @@ def complex_dtype(dtype):
     return torch.complex64 if dtype == torch.float32 else torch.complex128
 
 
+# host_threads() bookkeeping: the thread count to restore, recorded by
+# the first entry of any Python thread, how many callers are inside, and
+# each Python thread's own nesting depth
+_host_lock = threading.Lock()
+_host_state = {"depth": 0, "prev": None}
+_host_local = threading.local()
+
+
 @contextlib.contextmanager
 def host_threads():
     """Run the enclosed host stage on one intra-op CPU thread.
@@ -66,12 +75,34 @@ def host_threads():
     sections): a multi-threaded CPU pool does not make them faster, and
     on a shared host a call can stall on a pool thread that is not
     scheduled (``tests/torch_host_prep_timing.py --ops`` times both
-    thread counts).  The thread count is global to the process, so CPU
-    work of other Python threads runs on one thread meanwhile; it is
-    restored on exit."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
+    thread counts).
+
+    Safe under concurrent callers (the serving engine's prep workers).
+    With PyTorch's OpenMP backend the count is a setting of each Python
+    thread, seeded for new threads from a process-wide value that
+    ``torch.set_num_threads`` also writes.  So the count to restore is
+    recorded once, under a lock, by the first entry while no caller is
+    inside (a thread that starts while another is inside reads the
+    one-thread seed, and must not take that for the count to restore);
+    each Python thread sets one thread on its outermost entry and
+    restores the recorded count on its outermost exit, and the last exit
+    of all clears the record."""
+    with _host_lock:
+        if _host_state["depth"] == 0:
+            _host_state["prev"] = torch.get_num_threads()
+        _host_state["depth"] += 1
+        prev = _host_state["prev"]
+    mine = getattr(_host_local, "depth", 0)
+    _host_local.depth = mine + 1
+    if mine == 0:
+        torch.set_num_threads(1)
     try:
         yield
     finally:
-        torch.set_num_threads(prev)
+        _host_local.depth = mine
+        with _host_lock:
+            if mine == 0:
+                torch.set_num_threads(prev)
+            _host_state["depth"] -= 1
+            if _host_state["depth"] == 0:
+                _host_state["prev"] = None

@@ -33,14 +33,15 @@ only, so ``fused`` with mixed precision raises ``ValueError``.
 Preemption: ``waterfall_dispatch(should_yield=...)`` polls the callable
 after every block; when it returns True while lanes survive, the
 dispatch parks the survivors' state, operands and retirement store in a
-:class:`SuspendedWaterfall` of host tensors (exact copies), and
-``waterfall_dispatch(resume=...)`` continues it.  Every resumed block is
+:class:`SuspendedWaterfall` (the tensors stay on their device, uncopied),
+and ``waterfall_dispatch(resume=...)`` continues it.  Every resumed block is
 the block the uninterrupted run would have run, so the result is
 bit-identical.
 """
 
 import dataclasses
 import functools
+import time
 
 import numpy as np
 import torch
@@ -58,6 +59,10 @@ MODES = ("legacy", "waterfall", "fused")
 LANE_LADDER = (8, 16, 32, 64, 128)
 
 DEFAULT_BLOCK_ITERS = 4
+
+#: phase programs built in this process (each first use of a physics
+#: configuration, engine and device; serve/cache.py counts them)
+programs_built = 0
 
 # Gauss-Jordan eliminations of the finalize ladder beyond the one an
 # iteration does (dynamics.solve_complex_6x6_ladder: six in all), and the
@@ -115,8 +120,10 @@ def _phase_pipelines(physics, relax, block, kernel, mixed_precision,
     the node bundle shared ([N, ...]) or per lane ([L, N, ...]).
     ``kernel=True`` makes the block one launch of the fused kernel
     instead of K trips of the torch phases."""
+    global programs_built
     from raft_tpu_torch.model import _np_dtype, make_case_phases
 
+    programs_built += 1
     check_mode("fused" if kernel else "waterfall", mixed_precision)
     dtype = physics.dtype
     prelude, phases = make_case_phases(
@@ -152,15 +159,13 @@ def _phase_pipelines(physics, relax, block, kernel, mixed_precision,
     return prelude_fn, kernel_block, finalize_fn
 
 
-def _host(t):
-    return t.to("cpu", copy=True)
-
-
 @dataclasses.dataclass
 class SuspendedWaterfall:
     """A waterfall dispatch parked at a block boundary (``should_yield``
-    fired with survivors left).  Every tensor is an exact host copy, so
-    resuming reproduces the uninterrupted run's bits.  Pass it to
+    fired with survivors left).  Its tensors stay on the dispatch's
+    device, uncopied: on the card a host round trip of the operands costs
+    about as much as a block at the top rungs.  Resuming reproduces the
+    uninterrupted run's bits.  Pass it to
     ``waterfall_dispatch(resume=...)``; that call consumes it (its
     retirement store is shared, not copied), so resume it once."""
 
@@ -187,6 +192,8 @@ class SuspendedWaterfall:
     lane_sub: torch.Tensor = None   # submerged nodes per lane (host)
     yields: int = 1
     flops: float = 0.0
+    trace: object = None            # obs.tracing.TraceContext (or None)
+    span_ring: object = None        # obs.tracing.SpanRing (or None)
 
     @property
     def survivors(self):
@@ -226,7 +233,7 @@ def last_dispatch_stats():
 def waterfall_dispatch(physics, nodes_slots, args_slots, relax=0.8,
                        block=None, kernel=False, slab=None,
                        shared_nodes=False, should_yield=None, resume=None,
-                       mixed_precision=False):
+                       mixed_precision=False, trace=None, span_ring=None):
     """Run flattened (design x case) lanes through the iteration
     waterfall.
 
@@ -250,6 +257,10 @@ def waterfall_dispatch(physics, nodes_slots, args_slots, relax=0.8,
         arguments but ``should_yield`` are then ignored)
     mixed_precision : bf16-operand assembly (raft_tpu_torch/precision.py);
         refused with ``kernel=True``
+    trace, span_ring : a request's ``obs.tracing.TraceContext`` and the
+        ``SpanRing`` that records one ``wf_block`` span per block (from
+        the block's launch to its ``done`` read, the block's one host
+        sync); a suspension carries both to its resume
 
     Returns ``(xr [L, 6, nw], xi [L, 6, nw], SolveReport)`` on the
     operands' device, in the caller's lane order, per lane bit-identical
@@ -272,7 +283,7 @@ def waterfall_dispatch(physics, nodes_slots, args_slots, relax=0.8,
                 f"lanes > slab {S}); size the chunks within a slab or "
                 "raise `slab`")
         return _slabbed(physics, nodes_slots, args_slots, relax, K, kernel,
-                        S, shared_nodes, mixed_precision)
+                        S, shared_nodes, mixed_precision, trace, span_ring)
     device = args_slots[0].device
     _, block_fn, finalize_fn = pipes = _phase_pipelines(
         physics, float(relax), K, bool(kernel), bool(mixed_precision),
@@ -293,11 +304,11 @@ def waterfall_dispatch(physics, nodes_slots, args_slots, relax=0.8,
         physics, float(relax), K, bool(kernel), bool(shared_nodes),
         bool(mixed_precision), L, Lq, nodes_p, operands, nodes_p, operands,
         state, ids, None, 0, 0, 0, [], 0, block_fn, finalize_fn,
-        should_yield, 0.0, lane_sub)
+        should_yield, 0.0, lane_sub, trace, span_ring)
 
 
 def _slabbed(physics, nodes, args, relax, K, kernel, S, shared_nodes,
-             mixed_precision):
+             mixed_precision, trace=None, span_ring=None):
     """A megabatch of more than one slab, slab by slab; the stats add
     up."""
     L = int(args[0].shape[0])
@@ -309,7 +320,8 @@ def _slabbed(physics, nodes, args, relax, K, kernel, S, shared_nodes,
         outs.append(waterfall_dispatch(
             physics, nodes_s, tuple(a[sl] for a in args), relax=relax,
             block=K, kernel=kernel, slab=S, shared_nodes=shared_nodes,
-            mixed_precision=mixed_precision))
+            mixed_precision=mixed_precision, trace=trace,
+            span_ring=span_ring))
         st = last_dispatch_stats()
         if agg is None:
             agg = dict(st, rungs=list(st["rungs"]))
@@ -324,26 +336,19 @@ def _slabbed(physics, nodes, args, relax, K, kernel, S, shared_nodes,
 
 
 def _waterfall_resume(sus, should_yield=None):
-    """Continue a :class:`SuspendedWaterfall`; the host -> device copies
-    are exact, so the trajectory is the uninterrupted one."""
+    """Continue a :class:`SuspendedWaterfall` from its parked tensors, so
+    the trajectory is the uninterrupted one."""
     _, block_fn, finalize_fn = _phase_pipelines(
         sus.physics, sus.relax, sus.block, sus.kernel, sus.mixed_precision,
         sus.device)
-    dev = torch.device(sus.device)
-    to = lambda t: t.to(dev)  # noqa: E731
-    nodes_p = _map_nodes(to, sus.nodes_p)
-    nodes_cur = nodes_p if sus.shared_nodes else _map_nodes(to,
-                                                            sus.nodes_cur)
-    store = None if sus.state_store is None else [to(t) for t in
-                                                  sus.state_store]
+    nodes_cur = sus.nodes_p if sus.shared_nodes else sus.nodes_cur
     return _waterfall_loop(
         sus.physics, sus.relax, sus.block, sus.kernel, sus.shared_nodes,
-        sus.mixed_precision, sus.L, sus.Lq, nodes_p,
-        tuple(to(t) for t in sus.operands_full), nodes_cur,
-        tuple(to(t) for t in sus.operands), tuple(to(t) for t in sus.state),
-        np.array(sus.ids), store, sus.trips, sus.blocks, sus.lane_iters,
+        sus.mixed_precision, sus.L, sus.Lq, sus.nodes_p, sus.operands_full,
+        nodes_cur, sus.operands, sus.state, np.array(sus.ids),
+        sus.state_store, sus.trips, sus.blocks, sus.lane_iters,
         list(sus.rungs), sus.yields, block_fn, finalize_fn, should_yield,
-        sus.flops, sus.lane_sub)
+        sus.flops, sus.lane_sub, sus.trace, sus.span_ring)
 
 
 def _trip_flops(lane_sub, ids, nw):
@@ -361,7 +366,8 @@ def _waterfall_loop(physics, relax, K, kernel, shared_nodes,
                     mixed_precision, L, Lq, nodes_p, operands_full,
                     nodes_cur, operands, state, ids, state_store, trips,
                     blocks, lane_iters, rungs, yields, block_fn,
-                    finalize_fn, should_yield, flops, lane_sub):
+                    finalize_fn, should_yield, flops, lane_sub, trace=None,
+                    span_ring=None):
     """The block / retire / compact loop shared by fresh and resumed
     dispatches: one code path, so a suspension cannot change the
     scheduler's decisions (same rungs, same retirement trips)."""
@@ -371,11 +377,16 @@ def _waterfall_loop(physics, relax, K, kernel, shared_nodes,
 
     while True:
         rungs.append(len(ids))
+        b_wall, b0 = time.time(), time.perf_counter()
         state = block_fn(nodes_cur, *operands, state)
         blocks += 1
         trips += K
         lane_iters += len(ids) * K
         done = state[4].cpu().numpy()          # the block's one host sync
+        if span_ring is not None:
+            span_ring.record("wf_block", trace, b_wall,
+                             time.perf_counter() - b0, rung=len(ids),
+                             block=blocks, k=K)
         flops += K * _trip_flops(lane_sub, ids, nw)
         retire = done | (trips >= max_trips)
         real = ids >= 0
@@ -416,18 +427,14 @@ def _waterfall_loop(physics, relax, K, kernel, shared_nodes,
             return SuspendedWaterfall(
                 physics=physics, relax=relax, block=K, kernel=kernel,
                 shared_nodes=shared_nodes, mixed_precision=mixed_precision,
-                device=str(device), L=L, Lq=Lq,
-                nodes_p=_map_nodes(_host, nodes_p),
-                operands_full=tuple(_host(t) for t in operands_full),
-                nodes_cur=None if shared_nodes else _map_nodes(_host,
-                                                               nodes_cur),
-                operands=tuple(_host(t) for t in operands),
-                state=tuple(_host(t) for t in state), ids=np.array(ids),
-                state_store=None if state_store is None
-                else [_host(t) for t in state_store],
-                trips=trips, blocks=blocks, lane_iters=lane_iters,
-                rungs=list(rungs), lane_sub=lane_sub, yields=yields + 1,
-                flops=flops)
+                device=str(device), L=L, Lq=Lq, nodes_p=nodes_p,
+                operands_full=operands_full,
+                nodes_cur=None if shared_nodes else nodes_cur,
+                operands=operands, state=state, ids=np.array(ids),
+                state_store=state_store, trips=trips, blocks=blocks,
+                lane_iters=lane_iters, rungs=list(rungs), lane_sub=lane_sub,
+                yields=yields + 1, flops=flops, trace=trace,
+                span_ring=span_ring)
 
     # the retired states, already in the caller's lane order, finalize in
     # one ladder pass at the original rung

@@ -32,7 +32,7 @@ setup(
     packages=["raft_tpu", "raft_tpu.io", "raft_tpu.utils",
               "raft_tpu_torch", "raft_tpu_torch.io", "raft_tpu_torch.utils",
               "raft_tpu_torch.kernels", "raft_tpu_torch.serve",
-              "raft_tpu_torch.grad"],
+              "raft_tpu_torch.grad", "raft_tpu_torch.obs"],
     package_data={"raft_tpu": ["native/*.cpp", "native/Makefile"],
                   "raft_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
                                      "data/*.npz"]},

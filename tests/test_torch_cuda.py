@@ -716,3 +716,48 @@ def test_cli_in_process_launches_the_kernel(cuda, tmp_path, capsys):
     assert gk.launches > before
     assert model.device.type == "cuda"
     assert "Natural frequencies" in capsys.readouterr().out
+
+
+def _served_spar(rho_fill):
+    d = deep_spar(n_cases=2, nw_settings=(0.05, 0.5))
+    d["platform"]["members"][0]["rho_fill"] = [float(rho_fill), 0.0, 0.0]
+    return d
+
+
+def test_served_dispatch_on_the_card_is_bit_identical(cuda, tmp_path):
+    """One coalesced dispatch on the card: each request's bits equal the
+    same request served alone and ``Model(design, slots=bucket)``
+    (``torch.equal``), the Gauss–Jordan kernel launched by the engine."""
+    from raft_tpu_torch.model import Model
+    from raft_tpu_torch.serve import Engine, EngineConfig
+
+    designs = [_served_spar(1800.0), _served_spar(1500.0)]
+    cfg = dict(precision="float64", cache_dir=str(tmp_path),
+               use_result_cache=False)
+    with Engine(EngineConfig(window_ms=100.0, **cfg)) as eng:
+        before = gk.launches
+        co = [h.result(120) for h in [eng.submit(d) for d in designs]]
+        launched = gk.launches - before
+        snap = eng.snapshot()
+    with Engine(EngineConfig(window_ms=1.0, **cfg)) as eng:
+        solo = eng.evaluate(designs[1], timeout=120)
+    assert snap["dispatches"] == 1 and launched > 0
+    assert {r.backend for r in co} == {"cuda"}
+    assert torch.equal(torch.as_tensor(co[1].Xi), torch.as_tensor(solo.Xi))
+    m = Model(designs[1], slots=co[1].bucket)
+    m.analyze_unloaded()
+    m.analyze_cases()
+    assert torch.equal(torch.as_tensor(m.Xi), torch.as_tensor(co[1].Xi))
+
+
+def test_fused_served_request_launches_fused_block(cuda, tmp_path):
+    from raft_tpu_torch.serve import Engine, EngineConfig
+
+    with Engine(EngineConfig(precision="float64", window_ms=1.0,
+                             cache_dir=str(tmp_path), fixed_point="fused",
+                             use_result_cache=False)) as eng:
+        before = fk.launches
+        res = eng.evaluate(_served_spar(1800.0), timeout=120)
+    assert res.ok and res.backend == "cuda"
+    assert fk.launches > before
+    assert res.solve_report["converged"].all()

@@ -232,18 +232,32 @@ def test_model_without_device_needs_cuda(monkeypatch, name):
 def test_unported_paths_raise_not_implemented():
     """The BEM solve is ported (tests/test_torch_bem_model.py); its
     multi-device form is not.  The checkable pipeline is ported
-    (tests/test_torch_validate.py)."""
-    tm = raft_tpu_torch.Model(_design("spar"), device="cpu")
+    (tests/test_torch_validate.py); so are the serving buckets
+    (``slots=``) and the delegated solve (``solver=``,
+    tests/test_torch_serve.py), whose lane mesh over more than one card
+    is not."""
+    from raft_tpu_torch.serve import BucketSpec, EngineConfig
+
     design = _design("spar")
     design["platform"]["potModMaster"] = 2
     bem = raft_tpu_torch.Model(design, device="cpu")
-    for call in (lambda: tm.analyze_cases(solver=lambda *a: None),
-                 lambda: bem.run_bem(n_devices=2, dz_max=20.0,
-                                     da_max=20.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        raft_tpu_torch.Model(_design("spar"), device="cpu", slots=16)
+        bem.run_bem(n_devices=2, dz_max=20.0, da_max=20.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        EngineConfig(device="cpu", serve_devices=2)
+    tm = raft_tpu_torch.Model(_design("spar"), device="cpu")
+    calls = []
+
+    def solver(model, args, aux):
+        calls.append(aux["ncase"])
+        return model.case_pipeline_fn()(*(torch.as_tensor(a)
+                                          for a in args))
+
+    tm.analyze_cases(solver=solver)
+    assert calls == [tm.Xi.shape[0]]
+    spec = BucketSpec(nw=tm.nw, n_nodes=64, n_slots=8)
+    assert raft_tpu_torch.Model(_design("spar"), device="cpu",
+                                slots=spec).slots == spec
 
 
 def test_fused_mode_refuses_mixed_precision():

@@ -151,11 +151,16 @@ def test_bridled_design_raises_not_implemented():
     from raft_tpu_torch.model import Model
 
     # bridles are ported (tests/test_torch_bridles.py): the design builds,
-    # and a path still to port raises naming its ROADMAP.md step
+    # a serving bucket too (the serve stack is ported), and a path still
+    # to port raises naming its ROADMAP.md step
+    from raft_tpu_torch.serve import BucketSpec, EngineConfig
+
     m = Model(d, device="cpu")
     assert m._bridle_arrays is not None
+    spec = BucketSpec(nw=m.nw, n_nodes=64, n_slots=8)
+    assert Model(d, device="cpu", slots=spec).slots == spec
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Model(d, device="cpu", slots=16)
+        EngineConfig(device="cpu", serve_devices=2)
 
 
 # single lines (L, EA, w, Wp, cb) at spans (XF, ZF) in three regimes

@@ -196,12 +196,56 @@ def test_derivative_guards_raise_raft_tpu_messages(opts, match):
 
 @pytest.mark.parametrize("opt,value", [("engine", object()),
                                        ("engine_endpoint", "serve.invalid:9")])
-def test_engine_modes_raise_naming_step_12(opt, value):
-    comp = _port(_design(), **{opt: value})
-    with pytest.raises(NotImplementedError, match="queue 1 step 12"):
+def test_engine_modes_raise_naming_step_12(opt, value, pair, tmp_path):
+    """``engine_endpoint`` (the HTTP tier) raises naming ROADMAP.md queue
+    1 step 12b.  The ``engine`` mode runs: compute() submits the dynamics
+    to the live engine, bit-identical to ``Model(design,
+    slots=bucket)``'s slotted dispatch, its outputs within round-off of
+    the in-process component's; compute_partials takes served grad
+    requests, the in-process adjoint's rows bit for bit."""
+    if opt == "engine_endpoint":
+        comp = _port(_design(), **{opt: value})
+        with pytest.raises(NotImplementedError, match="queue 1 step 12b"):
+            comp.run()
+        with pytest.raises(NotImplementedError, match="queue 1 step 12b"):
+            comp.compute_partials(comp._inputs, {})
+        return
+    from raft_tpu_torch.model import Model
+    from raft_tpu_torch.serve import Engine, EngineConfig
+
+    design = _design()
+    with Engine(EngineConfig(device="cpu", precision="float64",
+                             window_ms=1.0, cache_dir=str(tmp_path),
+                             use_result_cache=False)) as eng:
+        comp = _port(design, engine=eng)
         comp.run()
-    with pytest.raises(NotImplementedError, match="queue 1 step 12"):
-        comp.compute_partials(comp._inputs, {})
+        partials = {}
+        comp.compute_partials(comp._inputs, partials)
+        solver = comp._engine_solver(eng, {})
+        m_eng = Model(design, device="cpu")
+        m_eng.analyze_unloaded()
+        m_eng.analyze_cases(solver=solver)
+        bucket = eng.bucket_for(design)
+        with pytest.raises(NotImplementedError, match="trim_ballast"):
+            comp._engine_solver(eng, {"trim_ballast": 1})
+        snap = eng.snapshot()
+    m_loc = Model(design, device="cpu", slots=bucket)
+    m_loc.analyze_unloaded()
+    m_loc.analyze_cases()
+    assert np.array_equal(m_eng.Xi, m_loc.Xi)
+    for name in ("converged", "iters", "residual"):
+        assert np.array_equal(getattr(m_eng.solve_report, name),
+                              getattr(m_loc.solve_report, name)), name
+    ref = pair[0]["port"]._outputs
+    for name in AGGREGATES:
+        scale = output_scale(ref, name)
+        assert abs(float(comp.get_val(name)) - float(ref[name])) \
+            <= 1e-10 * scale, name
+    assert partials.keys() == pair[1]["port"].keys()
+    for key, val in partials.items():
+        assert np.array_equal(np.asarray(val),
+                              np.asarray(pair[1]["port"][key])), key
+    assert snap["dispatches"] >= 2 and snap["grad_ok"] == 3
 
 
 def test_default_device_raises_without_a_card():

@@ -208,9 +208,40 @@ def test_pad_and_stack_nodes_inert_padding():
         assert (a - b).abs().max() <= 1e-12 * b.abs().max()
 
 
+@pytest.mark.parametrize("mode", ["legacy", "waterfall", "fused"])
+def test_via_buckets_matches_the_sweep_pipeline(mode, tmp_path,
+                                                monkeypatch):
+    """``via_buckets=True``: the dynamics through the serving buckets,
+    within round-off of the sweep's own pipeline (other node padding),
+    the flags equal; each row the bits of ``Model(design, slots=bucket)``
+    in the same mode; the bucket recorded in the warm-up manifest."""
+    from raft_tpu_torch.serve import cache as sc
+    from raft_tpu_torch.serve.buckets import choose_bucket
+
+    monkeypatch.setattr(sc, "DEFAULT_CACHE_ROOT", str(tmp_path))
+    points = ts.grid_points(AXES)[:4]
+    kw = dict(device="cpu", verbose=False, chunk=4, fixed_point=mode)
+    ref = ts.run_sweep(_base(), points, _apply_point, **kw)
+    res = ts.run_sweep(_base(), points, _apply_point, via_buckets=True,
+                       **kw)
+    assert _rel(res["Xi"], ref["Xi"]) <= 1e-10
+    for key in _FLAGS:
+        np.testing.assert_array_equal(res[key], ref[key], err_msg=key)
+    designs = [_apply_point(_base(), p) for p in points]
+    n_max = max(Model(d, device="cpu").nodes.r.shape[0] for d in designs)
+    m = Model(designs[1], device="cpu")
+    m.slots = choose_bucket(m.nw, n_max, 2)
+    m.analyze_unloaded()
+    m.analyze_cases(fixed_point=mode)
+    np.testing.assert_array_equal(res["Xi"][1], m.Xi)
+    (entry,) = sc.WarmupManifest().load()
+    assert entry["spec"] == m.slots.as_dict()
+    assert entry["flags"]["fixed_point"] == mode
+
+
 def test_deferred_sweep_paths_raise():
     points = ts.grid_points(AXES)[:1]
-    for kw in (dict(device=["cpu", "cpu"]), dict(via_buckets=True)):
+    for kw in (dict(device=["cpu", "cpu"]),):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ts.run_sweep(_base(), points, _apply_point, verbose=False,
                          **dict(dict(device="cpu"), **kw))

@@ -218,14 +218,41 @@ def test_guided_rotor_eval_matches_direct(monkeypatch):
         assert float((np.abs(J_f - J_d) / sj).max()) < 1e-12
 
 
+@pytest.mark.parametrize("mode", ["legacy", "waterfall", "fused"])
+def test_via_buckets_matches_the_sweep_pipeline(db_sweeps, design_sweeps,
+                                                mode, tmp_path,
+                                                monkeypatch):
+    """``via_buckets=True`` in both fused sweeps: the dynamics through
+    the serving buckets, within round-off of the sweeps' own pipelines
+    (other node padding and batch shapes), the flags equal."""
+    from raft_tpu_torch.serve import cache as sc
+
+    monkeypatch.setattr(sc, "DEFAULT_CACHE_ROOT", str(tmp_path))
+    kw = dict(draft_group=1, return_xi=True, verbose=False, device="cpu",
+              fixed_point=mode)
+    ref = db_sweeps[True][1]
+    res = tsf.run_draft_ballast_sweep(_aero_design(True), DRAFTS, BALLASTS,
+                                      via_buckets=True, **kw)
+    assert _rel(res["Xi"], ref["Xi"]) <= 1e-8
+    assert _rel(res["std"], ref["std"]) <= 1e-8
+    for key in ("converged", "nonfinite", "failed_mask"):
+        np.testing.assert_array_equal(res[key], ref[key], err_msg=key)
+    ds = [tsf.scale_draft(_aero_design(True), s) for s in DESIGN_DRAFTS]
+    dref = design_sweeps[False][1]
+    dres = tsf.run_design_sweep(ds, group=2, return_xi=True, verbose=False,
+                                device="cpu", fixed_point=mode,
+                                via_buckets=True)
+    assert _rel(dres["Xi"], dref["Xi"]) <= 1e-8
+    np.testing.assert_array_equal(dres["converged"], dref["converged"])
+    assert sc.WarmupManifest().load()
+
+
 def test_deferred_sweep_paths_raise():
     d = _aero_design(False)
-    for kw in (dict(via_buckets=True), dict(batched_prep=True),
-               dict(device=["cpu", "cpu"])):
+    for kw in (dict(batched_prep=True), dict(device=["cpu", "cpu"])):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tsf.run_draft_ballast_sweep(d, [1.0], [1.0], draft_group=1,
                                         verbose=False,
                                         **dict(dict(device="cpu"), **kw))
-    with pytest.raises(NotImplementedError, match="step 12"):
-        tsf.run_design_sweep([d], device="cpu", via_buckets=True,
-                             verbose=False)
+    with pytest.raises(NotImplementedError, match="step 8"):
+        tsf.run_design_sweep([d], device=["cpu", "cpu"], verbose=False)

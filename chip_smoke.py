@@ -151,7 +151,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
     where matplotlib is not installed, the analysis printed and the
     command failing on it), then ``__main__.main`` in this process with
     its gj_solve launches counted (the same natural frequencies), and
-    ``main(["serve", "--http", "0"])`` raising, naming ROADMAP step 12b;
+    ``main(["serve", "--http", "0", "--replicas", "2", "--device",
+    "cuda:0,cuda:1"])`` raising, naming ROADMAP step 8 item 2 (every
+    replica runs on one card; ``serve --http`` itself is phase 31);
 24. ``validate.checked_pipeline`` on the flagship on the card: Xi and
     the report bit-identical to the unchecked pipeline and to
     ``analyze_cases``, its launches counted, its time beside the
@@ -189,7 +191,24 @@ Phases (each prints a line; any failure raises and exits non-zero):
     bits) and with two unseen designs (the manifest alone): the buckets
     replayed, the first-request latencies;
 30. serve grad: ``Engine.submit_grad`` on the flagship within 1e-8 of
-    ``grad.design_value_and_grad`` on the card, with its launches.
+    ``grad.design_value_and_grad`` on the card, with its launches;
+31. serve http: a ``python -m raft_tpu_torch serve --http 0 --device
+    cuda`` process answering a flagship solve, a streamed sweep of eight
+    ballast variants and a grad through ``WireClient``, each
+    ``np.array_equal`` to the in-process engine on the card, every
+    result's backend ``cuda``, the checksums verified, ``/versionz``
+    naming the card; its kernel launches (``/statz``), its spawn and the
+    requests' wall times, then SIGTERM and exit 0;
+32. serve router: a 2-replica ``serve.Router`` (both processes on this
+    card, one shared cache dir): solve, sweep and grad equal to the
+    in-process engine; a mid-stream sweep failover under
+    ``replica_kill`` (the uncovered designs move, the bits stay);
+    ``scale_out`` with the warm handoff (the newcomer's first request a
+    hit); a solo ``replica_kill`` retried on the other replica;
+    drain-first ``retire_replica``; every replica's ``spawn_s``;
+33. serve autoscale: an 8 s open-loop ``loadgen.run_phase`` at 4
+    requests/s against a 1-replica router with its autoscaler: p50 and
+    p95, the statuses, the scale events, lost = 0.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  In the kernel table ``ms`` is the
@@ -200,7 +219,9 @@ taken); ``device_ms``, where given, the kernel's device time alone; the
 Jacobian, ``launches_batched_prep_sweep`` phase 21's batched sweep,
 ``launches_omdao`` / ``launches_backward_omdao`` phase 22's warm
 compute() and compute_partials, ``launches_cli`` and
-``launches_checked`` phases 23 and 24; ``launches_omdao_bem`` of the BEM
+``launches_checked`` phases 23 and 24, ``launches_serve_http``,
+``launches_router`` and ``launches_autoscale`` the launches the served
+processes of phases 31-33 report; ``launches_omdao_bem`` of the BEM
 kernels is phase 22's run_native_BEM compute().
 Without CUDA, or without the raft_tpu_torch package beside it, the script
 exits non-zero and prints no result.
@@ -2318,16 +2339,17 @@ def cli_phase(rt, gk):
         raise AssertionError("the CLI's natural frequencies differ in and "
                              "out of process")
     try:
-        cli.main(["serve", "--http", "0"])
+        cli.main(["serve", "--http", "0", "--replicas", "2", "--device",
+                  "cuda:0,cuda:1"])
     except NotImplementedError as e:
-        if "queue 1 step 12b" not in str(e):
+        if "queue 1 step 8 item 2" not in str(e):
             raise
     else:
-        raise AssertionError("'serve --http' did not raise")
+        raise AssertionError("replicas across two cards did not raise")
     print(f"phase cli: subprocess exit={out.returncode} wall_s={cli_s:.2f} "
           f"{plotted} | in process main_s={main_s:.3f} gj_launches="
-          f"{launches} '{fn_line(out.stdout)}' | serve --http raises "
-          f"naming step 12b", flush=True)
+          f"{launches} '{fn_line(out.stdout)}' | serve --replicas across "
+          f"two cards raises naming step 8 item 2", flush=True)
     return dict(gj_solve=launches)
 
 
@@ -2799,6 +2821,288 @@ def serve_phases(rt, gk, fk):
         l_grad = serve_grad_phase(rt, gk, tmp)
     return dict(coalesce=l_co, fused=l_fu, grad=l_grad)
 
+# ------------------------------------------------ the network tier (31-33)
+
+NET_FILLS = np.linspace(1000.0, 1140.0, 8)       # sweep ballast variants
+NET_FAILOVER_FILLS = np.linspace(1300.0, 1370.0, 8)
+NET_PHASE_S = 8.0                 # phase 33's open-loop window
+NET_RATE_HZ = 4.0
+
+
+def _net(rt, rho):
+    """A flagship ballast variant as plain JSON (the wire's form)."""
+    return rt.serve.wire.jsonable(_ballast_variant(rt, rho))
+
+
+def _same_result(res, ref, what):
+    """A served RequestResult against the in-process engine's: ok, on the
+    card, and equal bit for bit."""
+    if res.status != "ok" or ref.status != "ok":
+        raise AssertionError(f"{what}: {res.status} / {ref.status}: "
+                             f"{res.error} / {ref.error}")
+    if res.backend != torch.device(CARD).type:
+        raise AssertionError(f"{what}: served on {res.backend}")
+    if not (np.array_equal(res.Xi, ref.Xi)
+            and np.array_equal(res.std, ref.std)):
+        raise AssertionError(f"{what}: served bits differ from the "
+                             f"in-process engine's")
+    for key, val in ref.solve_report.items():
+        if not np.array_equal(res.solve_report[key], val):
+            raise AssertionError(f"{what}: report {key} differs")
+
+
+def _same_sweep(res, ref, what):
+    if res.status != "ok" or ref.status != "ok":
+        raise AssertionError(f"{what}: {res.status} / {ref.status}")
+    if not (np.array_equal(res.Xi_r, ref.Xi_r)
+            and np.array_equal(res.Xi_i, ref.Xi_i)):
+        raise AssertionError(f"{what}: sweep bits differ")
+    for key, val in ref.report.items():
+        if not np.array_equal(res.report[key], val, equal_nan=True):
+            raise AssertionError(f"{what}: sweep report {key} differs")
+
+
+def _same_grad(res, ref, what):
+    if res.status != "ok" or (res.value, res.gradient) != (ref.value,
+                                                          ref.gradient):
+        raise AssertionError(f"{what}: grad {res.status} {res.value} != "
+                             f"{ref.value}")
+
+
+def _launches(gauges):
+    """Summed gj_solve / fused_block launches of served processes'
+    ``/statz`` docs."""
+    out = {"gj_solve": 0, "gj_solve_backward": 0, "fused_block": 0}
+    for doc in gauges:
+        for key in out:
+            out[key] += int(((doc or {}).get("kernel_launches")
+                             or {}).get(key, 0))
+    return out
+
+
+NET_OBJECTIVE = {"metric": "rao_pitch_peak"}
+
+
+def net_http_phase(rt, tmp, eng):
+    """Phase 31: ``serve --http 0`` on the card in a subprocess."""
+    import os
+    import signal
+
+    wire = rt.serve.wire
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "raft_tpu_torch", "serve", "--http", "0",
+         "--device", CARD, "--no-warmup", "--cache-dir",
+         os.path.join(tmp, "http")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root))
+    try:
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"serve --http exited:\n"
+                                 f"{proc.stderr.read()[-3000:]}")
+        ready = json.loads(line)
+        spawn_s = time.perf_counter() - t0
+        client = rt.serve.WireClient("127.0.0.1", ready["port"])
+        solo = _net(rt, 1000.0)
+        t = time.perf_counter()
+        doc = client.solve({"design": solo, "xi": True})
+        solve_s = time.perf_counter() - t
+        if wire.checksum_mismatch(doc) or not doc.get("checksum"):
+            raise AssertionError(f"solve checksum: {doc.get('status')}")
+        _same_result(wire.result_from_doc(doc), eng.evaluate(solo, timeout=900),
+                     "http solve")
+        designs = [_net(rt, r) for r in NET_FILLS]
+        t = time.perf_counter()
+        term, chunks = client.sweep({"designs": designs, "chunk": 4})
+        sweep_s = time.perf_counter() - t
+        _same_sweep(wire.sweep_result_from_doc(term, chunks=chunks),
+                    eng.submit_sweep(designs, chunk=4).result(900),
+                    "http sweep")
+        t = time.perf_counter()
+        gdoc = client.grad({"design": solo, "objective": NET_OBJECTIVE},
+                           timeout=900)
+        grad_s = time.perf_counter() - t
+        if wire.checksum_mismatch(gdoc):
+            raise AssertionError("grad checksum")
+        gres = wire.grad_result_from_doc(gdoc)
+        if gres.backend != torch.device(CARD).type:
+            raise AssertionError(f"grad served on {gres.backend}")
+        _same_grad(gres, eng.evaluate_grad(solo, NET_OBJECTIVE, 900),
+                   "http grad")
+        _code, ver = client.get("/versionz")
+        name = torch.cuda.get_device_name(0) if CARD != "cpu" else "cpu"
+        if name not in ver["flags"]["backend"]:
+            raise AssertionError(f"/versionz backend "
+                                 f"{ver['flags']['backend']!r}")
+        _code, stats = client.get("/statz")
+        launches = _launches([stats])
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+        if proc.returncode != 0:
+            raise AssertionError(f"serve --http exit {proc.returncode}:\n"
+                                 f"{err[-3000:]}")
+        last = json.loads(out.strip().splitlines()[-1])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    print(f"phase serve http: port={ready['port']} backend="
+          f"{ver['flags']['backend']!r} spawn_s={spawn_s:.2f} solve_s="
+          f"{solve_s:.3f} sweep_s={sweep_s:.3f} ({len(chunks)} chunks x 4 "
+          f"designs) grad_s={grad_s:.3f} | solve, sweep, grad "
+          f"np.array_equal to the in-process engine, backend "
+          f"{torch.device(CARD).type}, "
+          f"checksums verified | launches gj_solve={launches['gj_solve']} "
+          f"backward={launches['gj_solve_backward']} | SIGTERM drained "
+          f"accepted={last['accepted']} rc=0 wall_s="
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    return launches
+
+
+def net_router_phase(rt, tmp, eng):
+    """Phase 32: a 2-replica router, both replicas on this card."""
+    import os
+
+    t0 = time.perf_counter()
+    router = rt.serve.Router(n_replicas=2, device=CARD, warmup=False,
+                             cache_dir=os.path.join(tmp, "fleet"))
+    spawn = {r.id: r.spawn_s for r in router.replicas.values()}
+    try:
+        solo = _net(rt, 1010.0)
+        t = time.perf_counter()
+        res = router.evaluate(solo, timeout=900)
+        solve_s = time.perf_counter() - t
+        _same_result(res, eng.evaluate(solo, timeout=900), "router solve")
+        designs = [_net(rt, r + 5.0) for r in NET_FILLS]
+        t = time.perf_counter()
+        sres = router.submit_sweep(designs, chunk=4).result(900)
+        sweep_s = time.perf_counter() - t
+        _same_sweep(sres, eng.submit_sweep(designs, chunk=4).result(900),
+                    "router sweep")
+        _same_grad(router.evaluate_grad(solo, NET_OBJECTIVE, 900),
+                   eng.evaluate_grad(solo, NET_OBJECTIVE, 900),
+                   "router grad")
+        launches = _launches(router.replica_gauges().values())
+        # a mid-stream sweep failover: the kill lands after the first
+        # relayed chunk, the uncovered designs move to the other replica
+        fail = [_net(rt, r) for r in NET_FAILOVER_FILLS]
+        router.set_chaos("replica_kill*1:0")
+        t = time.perf_counter()
+        fres = router.submit_sweep(fail, chunk=1).result(900)
+        failover_s = time.perf_counter() - t
+        router.set_chaos(None)
+        _same_sweep(fres, eng.submit_sweep(fail, chunk=1).result(900),
+                    "router sweep failover")
+        failovers = router.stats["sweep_chunk_failovers"]
+        if failovers < 1:
+            raise AssertionError("the sweep did not fail over")
+        router.reap_dead()
+        # scale-out with the warm handoff: router-tier hits feed the
+        # popularity ledger, the newcomer preloads its head
+        for _ in range(2):
+            if router.evaluate(solo, timeout=60).replica is not None:
+                raise AssertionError("repeat was not a router-tier hit")
+        t = time.perf_counter()
+        new = router.scale_out()
+        scale_s = time.perf_counter() - t
+        rep = router.replicas[new]
+        _code, before = rep.client.get("/statz")
+        t = time.perf_counter()
+        first = rt.serve.wire.result_from_doc(
+            rep.client.solve({"design": solo, "xi": True}))
+        first_s = time.perf_counter() - t
+        _code, after = rep.client.get("/statz")
+        if before["handoff_preloaded"] < 1 or after[
+                "result_cache_hits"] != 1 or after["result_cache_misses"]:
+            raise AssertionError(f"warm handoff: {before['handoff_preloaded']}"
+                                 f" preloaded, {after['result_cache_hits']}"
+                                 f" hits")
+        _same_result(first, res, "warm first request")
+        # a solo replica_kill: the forward retries on the other replica
+        killed = _net(rt, 1500.0)
+        router.set_chaos("replica_kill*1:0")
+        kres = router.evaluate(killed, timeout=900)
+        router.set_chaos(None)
+        _same_result(kres, eng.evaluate(killed, timeout=900), "replica_kill")
+        retries = router.stats["replica_retries"]
+        router.reap_dead()
+        router.scale_out()
+        victim = router.retire_candidate()
+        if not router.retire_replica(victim):
+            raise AssertionError("retire_replica refused")
+        _same_result(router.evaluate(_net(rt, 1510.0), timeout=900),
+                     eng.evaluate(_net(rt, 1510.0), timeout=900),
+                     "after retire")
+        spawn.update({r.id: r.spawn_s for r in router.replicas.values()})
+        snap = router.snapshot()
+    finally:
+        router.shutdown()
+    print(f"phase serve router: replicas=2 on {CARD} spawn_s={spawn} | "
+          f"solve_s={solve_s:.3f} sweep_s={sweep_s:.3f} equal to the "
+          f"in-process engine | sweep failover: chunks=8 failovers="
+          f"{failovers} wall_s={failover_s:.2f} same bits | scale_out "
+          f"{new} in {scale_s:.2f}s, handoff preloaded="
+          f"{before['handoff_preloaded']} first request hit in "
+          f"{first_s:.4f}s same bits | replica_kill retries={retries} "
+          f"same bits | retired {victim} | kills="
+          f"{snap['chaos_replica_kills']} scale_outs={snap['scale_outs']} "
+          f"scale_ins={snap['scale_ins']} | launches gj_solve="
+          f"{launches['gj_solve']} backward="
+          f"{launches['gj_solve_backward']} | wall_s="
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    return launches
+
+
+def net_autoscale_phase(rt, tmp):
+    """Phase 33: a short open-loop load against an autoscaled router."""
+    import os
+
+    from raft_tpu_torch import loadgen
+
+    t0 = time.perf_counter()
+    router = rt.serve.Router(
+        n_replicas=1, device=CARD, warmup=False,
+        cache_dir=os.path.join(tmp, "scale"), autoscale=True,
+        autoscale_config=rt.serve.AutoscaleConfig(
+            min_replicas=1, max_replicas=2, high_water=2.0,
+            sustain_s=1.0, cooldown_s=2.0, interval_s=0.25))
+    try:
+        cfg = loadgen.LoadgenConfig(rate_hz=NET_RATE_HZ,
+                                    duration_s=NET_PHASE_S, seed=0,
+                                    distinct=4, collect_timeout_s=600.0)
+        rep = loadgen.run_phase(router, cfg, _net(rt, 1000.0),
+                                name="autoscale")
+        gauges = router.replica_gauges()
+        snap = router.snapshot()["autoscale"]
+    finally:
+        router.shutdown()
+    if rep["lost"] or rep["bits_identical"] is False:
+        raise AssertionError(f"autoscale phase: {rep}")
+    events = [(d["action"], d["replica"], d["t"]) for d in
+              snap["decisions"]]
+    print(f"phase serve autoscale: {rep['offered']} requests open-loop at "
+          f"{NET_RATE_HZ:g}/s over {NET_PHASE_S:g}s | statuses="
+          f"{rep['statuses']} goodput={rep['goodput']} p50_ms="
+          f"{rep['p50_ms']} p95_ms={rep['p95_ms']} lost={rep['lost']} "
+          f"canaries bit-identical={rep['bits_identical']} | autoscaler "
+          f"steps={snap['steps']} events={events} | wall_s="
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    return _launches(gauges.values())
+
+
+def net_phases(rt):
+    """Phases 31-33: the network tier on the card."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with _engine(rt, tmp) as eng:
+            l_http = net_http_phase(rt, tmp, eng)
+            l_router = net_router_phase(rt, tmp, eng)
+        l_scale = net_autoscale_phase(rt, tmp)
+    return dict(http=l_http, router=l_router, autoscale=l_scale)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2852,7 +3156,12 @@ def main():
     l_cli = cli_phase(rt, gk)
     l_checked = checked_phase(rt, gk)
     l_serve = serve_phases(rt, gk, fk)
+    l_net = net_phases(rt)
     new_paths = dict(serve=l_serve["coalesce"]["gj_solve"],
+                     serve_http=l_net["http"]["gj_solve"],
+                     serve_http_backward=l_net["http"]["gj_solve_backward"],
+                     router=l_net["router"]["gj_solve"],
+                     autoscale=l_net["autoscale"]["gj_solve"],
                      serve_fused=l_serve["fused"]["fused_block"],
                      serve_grad=l_serve["grad"]["gj_solve"],
                      omdao=l_omdao["gj_solve"],
@@ -2891,7 +3200,13 @@ def main():
              launches_serve_fused=l_serve["fused"]["gj_solve"],
              launches_serve_grad=l_serve["grad"]["gj_solve"],
              launches_backward_serve_grad=l_serve["grad"][
-                 "gj_solve_backward"], **g64, **bwd64),
+                 "gj_solve_backward"],
+             launches_serve_http=l_net["http"]["gj_solve"],
+             launches_backward_serve_http=l_net["http"][
+                 "gj_solve_backward"],
+             launches_router=l_net["router"]["gj_solve"],
+             launches_autoscale=l_net["autoscale"]["gj_solve"],
+             **g64, **bwd64),
         dict(name="fused_block", route="cuda",
              source="raft_tpu_torch/csrc/fused_block.cu",
              replaces="raft_tpu/pallas_kernels.py:428",

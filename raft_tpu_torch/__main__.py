@@ -13,17 +13,21 @@ serving engine's stdin JSON-line loop: design requests (``{"design":
 <path | dict>, "cases": [...]?, "deadline_s": s?}``) and sweep requests
 (``{"sweep": {"designs": [...], "cases": [...]?, "chunk": n?}}``), one
 result line each (a sweep streams a line per chunk, then its result
-line).  SIGTERM and SIGINT shut it down gracefully: in-flight batches
-finish and every outstanding handle resolves (``shutdown`` at worst).
-``--http``, ``--replicas`` and ``--autoscale`` (the network tier) exit
-naming ROADMAP.md queue 1 step 12b.
+line), in the wire schema of serve/wire.py.  SIGTERM and SIGINT shut it
+down gracefully: in-flight batches finish and every outstanding handle
+resolves (``shutdown`` at worst).
+
+``serve --http PORT`` serves the wire protocol over HTTP instead
+(serve/transport.py; port 0 binds an OS-assigned port, printed on the
+ready line): one in-process engine, or with ``--replicas N`` a router
+over N spawned replica processes on the same card (serve/router.py),
+with ``--autoscale`` its autoscaler (serve/autoscale.py).  Every knob is
+a flag; none is read from the environment.
 """
 
 import argparse
 import json
 import sys
-
-import numpy as np
 
 
 def _device(text):
@@ -34,6 +38,17 @@ def _device(text):
         return text
     raise argparse.ArgumentTypeError(
         f"device must be 'cuda', 'cuda:N' or 'cpu', got {text!r}")
+
+
+def _devices(text):
+    """The serve commands' device: one device, or a comma-separated list
+    of them naming one card (a list naming more than one raises: placing
+    replica i on card i is ROADMAP.md queue 1 step 8 item 2)."""
+    from raft_tpu_torch.serve.router import one_card
+
+    for part in text.split(","):
+        _device(part.strip())
+    return one_card(text)
 
 
 def _analyze_main(argv):
@@ -71,9 +86,10 @@ def _serve_parser(prog, description):
                    help="design YAML paths to seed and warm buckets from")
     p.add_argument("--precision", choices=["float32", "float64"],
                    default=None)
-    p.add_argument("--device", type=_device, default="cuda",
+    p.add_argument("--device", type=_devices, default="cuda",
                    help="device of the dispatches: cuda (the default), "
-                        "cuda:N or cpu")
+                        "cuda:N or cpu; every replica of --replicas runs "
+                        "on this one device")
     p.add_argument("--fixed-point", choices=["legacy", "waterfall", "fused"],
                    default="legacy", help="the dispatch engine")
     p.add_argument("--cache-dir", default=None,
@@ -116,30 +132,22 @@ def _scalars(snapshot):
             if not isinstance(v, (list, dict))}
 
 
-def _result_doc(res, include_xi=False):
-    """RequestResult -> its result line (the JAX package's wire fields,
-    without the payload checksum of the network tier)."""
-    doc = {"event": "result", "rid": res.rid, "status": res.status,
-           "latency_s": res.latency_s, "queue_s": res.queue_s,
-           "batch_requests": res.batch_requests,
-           "batch_occupancy": res.batch_occupancy}
-    if res.error:
-        doc["error"] = res.error
-    if res.backend:
-        doc["backend"] = res.backend
-    if res.bucket is not None:
-        doc["bucket"] = res.bucket.as_dict()
-    if res.trace_id:
-        doc["trace_id"] = res.trace_id
-    if res.status == "ok":
-        doc["std"] = np.asarray(res.std).tolist()
-        doc["std_dtype"] = str(np.asarray(res.std).dtype)
-        for key, val in (res.solve_report or {}).items():
-            doc[key] = np.asarray(val).tolist()
-        if include_xi and res.Xi is not None:
-            doc["Xi_re"] = res.Xi.real.tolist()
-            doc["Xi_im"] = res.Xi.imag.tolist()
-            doc["Xi_dtype"] = str(res.Xi.dtype)
+def _ready(eng, report):
+    """An engine's ready line: its scalar stats and the warm-up report."""
+    ready = {"event": "ready", **_scalars(eng.snapshot())}
+    if report is not None:
+        ready["warmup"] = {k: v for k, v in report.items()
+                           if k not in ("flags", "rejected")}
+    return ready
+
+
+def _result_line(res, include_xi=False):
+    """RequestResult -> its stdin-loop line: the wire document plus the
+    request's queue wait."""
+    from raft_tpu_torch.serve import wire
+
+    doc = wire.result_doc(res, include_xi=include_xi)
+    doc["queue_s"] = round(res.queue_s, 4)
     return doc
 
 
@@ -147,42 +155,109 @@ def _emit(doc):
     print(json.dumps(doc), flush=True)
 
 
-_SWEEP_META = ("event", "rid", "chunk", "n_chunks", "designs", "wall_s",
-               "suspend_s", "preemptions", "mode", "failed_idx",
-               "failed_msg")
-
-
 def _emit_sweep(eng, doc, load_design, pending, include_xi):
-    """A sweep line of the stdin loop: an accepted line, a line per
-    finished chunk (the sweeps' checkpoint schema keys), then the
-    terminal ``sweep_result`` line (meta only: the arrays rode the chunk
-    lines).  Interactive results that finish meanwhile are emitted
-    between chunk lines."""
-    if not isinstance(doc, dict) or not isinstance(doc.get("designs"),
-                                                   list):
-        raise ValueError("sweep request needs a 'designs' list")
+    """A sweep line of the stdin loop: an accepted line, a wire chunk
+    line per finished chunk, then the terminal ``sweep_result`` line
+    (meta only: the arrays rode the chunk lines).  Interactive results
+    that finish meanwhile are emitted between chunk lines."""
+    from raft_tpu_torch.serve import wire
+
+    designs, cases, chunk = wire.parse_sweep_request(doc)
     designs = [load_design(d) if isinstance(d, str) else d
-               for d in doc["designs"]]
-    handle = eng.submit_sweep(designs, cases=doc.get("cases"),
-                              chunk=doc.get("chunk"))
+               for d in designs]
+    handle = eng.submit_sweep(designs, cases=cases, chunk=chunk)
     _emit({"event": "sweep_accepted", "rid": handle.rid,
            "n_designs": handle.n_designs, "n_chunks": handle.n_chunks})
     for ch in handle.chunks():
-        line = {k: ch[k] for k in _SWEEP_META if k in ch}
-        for key in ("Xi_r", "Xi_i", "converged", "iters", "nonfinite",
-                    "recovery_tier", "residual", "cond"):
-            if key in ch:
-                line[key] = np.asarray(ch[key]).tolist()
-        _emit(line)
+        _emit(wire.sweep_chunk_doc(ch))
         while pending and pending[0].done():
-            _emit(_result_doc(pending.pop(0).result(0), include_xi))
-    res = handle.result(600)
-    _emit({"event": "sweep_result", "rid": res.rid, "status": res.status,
-           "n_designs": res.n_designs, "n_chunks": res.n_chunks,
-           "chunks_done": res.chunks_done, "error": res.error,
-           "failed_idx": res.failed_idx, "failed_msg": res.failed_msg,
-           "preemptions": res.preemptions, "mode": res.mode,
-           "latency_s": res.latency_s, "suspend_s": res.suspend_s})
+            _emit(_result_line(pending.pop(0).result(0), include_xi))
+    _emit(wire.sweep_result_doc(handle.result(600)))
+
+
+#: the autoscaler's thresholds as flags: (suffix, type, default, what)
+_AUTOSCALE_FLAGS = (
+    ("high", float, 4.0, "high-water pressure per replica"),
+    ("low", float, 0.5, "low-water pressure per replica"),
+    ("min", int, 1, "floor replica count"),
+    ("max", int, 4, "ceiling replica count"),
+    ("sustain", float, 2.0, "hysteresis window in seconds"),
+    ("cooldown", float, 5.0, "hold after an action in seconds"),
+    ("interval", float, 1.0, "policy tick period in seconds"),
+)
+
+
+def _engine_config(args):
+    from raft_tpu_torch.serve import EngineConfig
+
+    cfg = EngineConfig(precision=args.precision, device=args.device,
+                       cache_dir=args.cache_dir,
+                       fixed_point=args.fixed_point, preempt=args.preempt,
+                       warm_handoff=args.warm_handoff, chaos=args.chaos)
+    if args.window_ms is not None:
+        cfg.window_ms = args.window_ms
+    return cfg
+
+
+def _router(args):
+    """The ``--replicas`` backend: a router over spawned replicas."""
+    from raft_tpu_torch.serve import AutoscaleConfig, Router
+
+    scale = AutoscaleConfig(**{
+        f: getattr(args, f"autoscale_{name}") for name, f in (
+            ("high", "high_water"), ("low", "low_water"),
+            ("min", "min_replicas"), ("max", "max_replicas"),
+            ("sustain", "sustain_s"), ("cooldown", "cooldown_s"),
+            ("interval", "interval_s"))})
+    return Router(
+        n_replicas=args.replicas, cache_dir=args.cache_dir,
+        precision=args.precision, device=args.device,
+        fixed_point=args.fixed_point, window_ms=args.window_ms,
+        warmup=not args.no_warmup, preempt=args.preempt,
+        autoscale=args.autoscale, autoscale_config=scale,
+        coalesce=args.coalesce, chaos=args.chaos)
+
+
+def _serve_http_main(args, backend, ready):
+    """The ``--http`` serve path: ``backend`` (an engine, or a router over
+    ``--replicas`` processes) fronted by serve/transport.py.  stdout
+    carries only the ready and shutdown lines; requests ride the wire.
+    SIGTERM/SIGINT drain: every accepted request gets its terminal line
+    before the listener closes."""
+    import signal
+    import threading
+
+    from raft_tpu_torch.serve import serve_http
+
+    stop = threading.Event()
+    sig_caught = []
+
+    def _on_signal(signum, frame):
+        sig_caught.append(signum)
+        stop.set()
+
+    old_handlers = {s: signal.signal(s, _on_signal)
+                    for s in (signal.SIGTERM, signal.SIGINT)}
+    # with --replicas the router's faults fire in the router
+    transport = serve_http(backend, port=args.http,
+                           chaos=None if args.replicas else args.chaos,
+                           profile_dir=args.profile_dir)
+    try:
+        _emit({**ready, "port": transport.port,
+               "replicas": args.replicas or 0,
+               "backend": backend.flags.get("backend")})
+        # a timed wait: the signal may land on another of the process's
+        # threads (the CUDA runtime's), and the handler only runs once
+        # the main thread executes bytecode again
+        while not stop.wait(0.5):
+            pass
+    finally:
+        for s, h in old_handlers.items():
+            signal.signal(s, h)
+        report = transport.drain(drain_queue=not sig_caught)
+        _emit({"event": "shutdown",
+               "signal": sig_caught[0] if sig_caught else None, **report})
+    return backend
 
 
 def _serve_main(argv):
@@ -201,33 +276,57 @@ def _serve_main(argv):
     p.add_argument("--xi", action="store_true",
                    help="include the complex response amplitudes in each "
                         "result line")
+    p.add_argument("--preempt", action="store_true",
+                   help="preempt sweep chunks at waterfall block "
+                        "boundaries for interactive requests")
+    p.add_argument("--warm-handoff", default=None, metavar="PATH",
+                   help="a warm-handoff manifest whose result-cache "
+                        "entries the engine preloads before its ready line")
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="a fault-injection spec (chaos.py); with "
+                        "--replicas the router's faults, never passed on "
+                        "to the replicas")
     p.add_argument("--http", type=int, default=None, metavar="PORT",
-                   help="the HTTP transport (not ported yet)")
+                   help="serve the wire protocol over HTTP on PORT (0 = "
+                        "OS-assigned, printed on the ready line) instead "
+                        "of the stdin loop")
     p.add_argument("--replicas", type=int, default=None, metavar="N",
-                   help="a router over N replicas (not ported yet)")
+                   help="with --http: a consistent-hash router over N "
+                        "spawned engine replicas on the card")
+    p.add_argument("--coalesce", action="store_true",
+                   help="with --replicas: single-flight identical "
+                        "requests and sweep chunks at the router")
+    p.add_argument("--profile-dir", default=None,
+                   help="default directory of POST /profilez captures")
     p.add_argument("--autoscale", action="store_true",
-                   help="the router's autoscaler (not ported yet)")
+                   help="with --replicas: grow and shrink the fleet "
+                        "against per-replica pressure")
+    for name, typ, default, what in _AUTOSCALE_FLAGS:
+        p.add_argument(f"--autoscale-{name}", type=typ, default=default,
+                       help=f"autoscaler {what} (default {default})")
     args = p.parse_args(argv)
-    if args.http is not None or args.replicas or args.autoscale:
-        from raft_tpu_torch.model import _not_ported
-
-        raise _not_ported("the serve network tier (--http, --replicas, "
-                          "--autoscale)", "12b")
+    if args.replicas and args.http is None:
+        p.error("--replicas needs --http")
+    if args.autoscale and not args.replicas:
+        p.error("--autoscale needs --replicas")
+    if args.replicas:
+        router = _router(args)
+        return _serve_http_main(args, router, {"event": "ready", "spawn_s": {
+            r.id: r.spawn_s for r in router.replicas.values()}})
 
     from raft_tpu_torch.io.schema import load_design
-    from raft_tpu_torch.serve import Engine, EngineConfig, warmup
+    from raft_tpu_torch.serve import Engine, warmup
 
-    cfg = EngineConfig(precision=args.precision, device=args.device,
-                       cache_dir=args.cache_dir,
-                       fixed_point=args.fixed_point)
-    if args.window_ms is not None:
-        cfg.window_ms = args.window_ms
+    cfg = _engine_config(args)
     designs = [load_design(path) for path in args.designs]
     report = None
     if not args.no_warmup:
         report = warmup(designs=designs or None, precision=args.precision,
                         cache_dir=args.cache_dir, device=args.device,
                         fixed_point=args.fixed_point)
+    if args.http is not None:
+        eng = Engine(cfg)
+        return _serve_http_main(args, eng, _ready(eng, report))
 
     def _on_signal(signum, frame):
         raise _SignalShutdown(signum)
@@ -238,11 +337,7 @@ def _serve_main(argv):
     sig = None
     pending = []
     try:
-        ready = {"event": "ready", **_scalars(eng.snapshot())}
-        if report is not None:
-            ready["warmup"] = {k: v for k, v in report.items()
-                               if k not in ("flags", "rejected")}
-        _emit(ready)
+        _emit(_ready(eng, report))
         for line in sys.stdin:
             line = line.strip()
             if not line:
@@ -264,7 +359,7 @@ def _serve_main(argv):
                        "error": f"{type(e).__name__}: {e}"})
                 continue
             while pending and pending[0].done():
-                _emit(_result_doc(pending.pop(0).result(0), args.xi))
+                _emit(_result_line(pending.pop(0).result(0), args.xi))
     except _SignalShutdown as e:
         sig = e.signum
     finally:
@@ -275,7 +370,7 @@ def _serve_main(argv):
         eng.shutdown(wait=True, drain=(sig is None))
         for h in pending:
             try:
-                _emit(_result_doc(h.result(timeout=30), args.xi))
+                _emit(_result_line(h.result(timeout=30), args.xi))
             except TimeoutError:
                 _emit({"event": "result", "rid": h.rid,
                        "status": "shutdown",

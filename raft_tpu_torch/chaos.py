@@ -30,10 +30,10 @@ Examples: ``"prep_raise@2:7"`` (rid 2's prep raises),
 The port's engine hooks ``prep_raise``, ``prep_slow``, ``nan_lane``,
 ``dispatch_stall``, ``backend_error``, ``corrupt_cache``,
 ``corrupt_result_cache``, ``corrupt_manifest`` and ``stale_handoff``;
-the network faults (``conn_drop``, ``replica_kill``, ``replica_slow``,
-``dup_inflight``, ``net_partition``, ``wire_corrupt``,
-``handshake_skew``) parse, so a spec reads the same in both packages,
-and wait for the network tier (ROADMAP.md, queue 1 step 12b).
+the HTTP transport ``conn_drop``; its wire client ``net_partition`` and
+``wire_corrupt``; the router ``replica_kill``, ``replica_slow``,
+``dup_inflight`` and ``handshake_skew`` (``Router(chaos=...)``, never
+passed on to the replicas).
 
 Per-rid targeting caveat: the engine deduplicates prep per design key,
 so ``prep_raise``/``prep_slow`` intercept the rid that owns the prep

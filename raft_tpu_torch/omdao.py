@@ -24,9 +24,9 @@ modeling option ``device`` (``cuda`` by default, raising without a card;
 are launches of the hand-written kernel on the card.  The exact partials
 go through the port's reverse-mode adjoints (raft_tpu_torch/grad).  The
 ``engine`` mode routes every solve (and every partials row) through a
-live in-process ``raft_tpu_torch.serve.Engine``; ``engine_endpoint``
-(the HTTP tier) raises ``NotImplementedError`` (ROADMAP.md, queue 1
-step 12b).
+live in-process ``raft_tpu_torch.serve.Engine`` (or Router);
+``engine_endpoint`` (``host:port`` of a serve HTTP tier) routes them over
+the wire (serve/transport.py ``WireClient``), with the same bits.
 """
 
 import contextlib
@@ -208,6 +208,32 @@ _RESPONSE_OUTPUTS = [
 ]
 
 
+class _EndpointEngine:
+    """The ``evaluate`` / ``evaluate_grad`` surface of a serve HTTP tier
+    at ``host:port`` (``engine_endpoint``): each call is one wire request
+    (serve/transport.py ``WireClient``) whose decoded result carries the
+    engine's exact bits."""
+
+    def __init__(self, endpoint):
+        from raft_tpu_torch.serve.transport import WireClient
+
+        host, _, port = str(endpoint).rpartition(":")
+        self.client = WireClient(host or "127.0.0.1", int(port))
+
+    def evaluate(self, design, timeout=600.0):
+        from raft_tpu_torch.serve import wire
+
+        self.client.timeout = timeout
+        return wire.result_from_doc(
+            self.client.solve({"design": design, "xi": True}))
+
+    def evaluate_grad(self, design, objective, timeout=600.0):
+        from raft_tpu_torch.serve import wire
+
+        return wire.grad_result_from_doc(self.client.grad(
+            {"design": design, "objective": objective}, timeout=timeout))
+
+
 class RAFT_OMDAO(_ComponentBase):
     """RAFT OpenMDAO wrapper (PyTorch/CUDA backend).
 
@@ -223,9 +249,9 @@ class RAFT_OMDAO(_ComponentBase):
     submits the dynamics to the engine (``Model.analyze_cases(solver=)``),
     so the solve is bit-identical to ``Model(design, slots=bucket)`` in
     the engine's mode; compute_partials takes each row as a served grad
-    request (``Engine.evaluate_grad``).  ``engine_endpoint`` (a serve
-    HTTP tier) raises ``NotImplementedError`` until the network tier is
-    ported (ROADMAP.md, queue 1 step 12b).
+    request (``Engine.evaluate_grad``).  ``engine_endpoint`` (a
+    ``host:port`` string of a serve HTTP tier) does the same over the
+    wire: the decoded results equal the engine's bit for bit.
     """
 
     def initialize(self):
@@ -784,14 +810,11 @@ class RAFT_OMDAO(_ComponentBase):
 
     # ----------------------------------------------------------- compute
     def _engine(self, modeling_opt):
-        """The live engine of the ``engine`` mode, or None; the HTTP
-        endpoint mode raises (the network tier is not ported yet)."""
-        if modeling_opt.get("engine_endpoint"):
-            from raft_tpu_torch.model import _not_ported
-
-            raise _not_ported(
-                "RAFT_OMDAO's 'engine_endpoint' mode (the serve network "
-                "tier)", "12b")
+        """The engine of the ``engine`` mode, a wire client of the
+        ``engine_endpoint`` mode, or None."""
+        endpoint = modeling_opt.get("engine_endpoint")
+        if endpoint and modeling_opt.get("engine") is None:
+            return _EndpointEngine(endpoint)
         return modeling_opt.get("engine")
 
     def _engine_solver(self, engine, modeling_opt):
@@ -988,8 +1011,8 @@ class RAFT_OMDAO(_ComponentBase):
         traced twin models neither; _check_derivative_options refuses
         the combination in setup() and here).  In the ``engine`` mode each
         row is a served grad request (``Engine.evaluate_grad``), the same
-        adjoint on the engine's device; ``engine_endpoint`` raises
-        (ROADMAP.md, queue 1 step 12b).
+        adjoint on the engine's device; ``engine_endpoint`` sends the same
+        requests over the wire.
 
         The draft column is exact within a topology cell: strip counts
         jump at member-length multiples of dls_max.

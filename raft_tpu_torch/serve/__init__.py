@@ -1,11 +1,15 @@
-"""The port's serving layer (``raft_tpu/serve`` without its network
-tier): shape buckets (:mod:`.buckets`), the warm-up manifest and prep
-cache (:mod:`.cache`), the exact-answer result cache
-(:mod:`.result_cache`) and the micro-batching :class:`Engine`
-(:mod:`.engine`).  The wire schema, the HTTP transport, the router and
-the autoscaler wait for ROADMAP.md queue 1 step 12b.
+"""The port's serving layer (``raft_tpu/serve``): shape buckets
+(:mod:`.buckets`), the warm-up manifest and prep cache (:mod:`.cache`),
+the exact-answer result cache (:mod:`.result_cache`), the micro-batching
+:class:`Engine` (:mod:`.engine`), and the network tier: the wire schema
+(:mod:`.wire`), the HTTP transport (:mod:`.transport`), the replica
+:class:`Router` (:mod:`.router`) and its autoscaler (:mod:`.autoscale`).
 """
 
+from raft_tpu_torch.serve.autoscale import (  # noqa: F401
+    AutoscaleConfig,
+    Autoscaler,
+)
 from raft_tpu_torch.serve.buckets import (  # noqa: F401
     BucketSpec,
     SlotPhysics,
@@ -41,4 +45,17 @@ from raft_tpu_torch.serve.result_cache import (  # noqa: F401
     ResultCache,
     result_key,
     routing_key,
+)
+from raft_tpu_torch.serve.router import (  # noqa: F401
+    HandshakeRefused,
+    HashRing,
+    Router,
+    spawn_replica,
+)
+from raft_tpu_torch.serve.transport import (  # noqa: F401
+    ConnectionDropped,
+    HttpTransport,
+    WireChecksumError,
+    WireClient,
+    serve_http,
 )

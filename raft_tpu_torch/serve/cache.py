@@ -182,6 +182,9 @@ _FLAG_KEYS = ("backend", "torch", "cuda", "code_version", "dtype",
 #: fixed-point engine)
 _DISPATCH_KEYS = ("fixed_point", "fixed_point_block", "n_devices", "mesh",
                   "lane_block")
+#: every key a reuse or attach decision compares: what ``GET /versionz``
+#: reports as the flag surface (serve/transport.py)
+FLAG_SURFACE = _FLAG_KEYS + _DISPATCH_KEYS
 
 
 def flags_mismatch(entry_flags, flags, topology=True):

@@ -47,6 +47,7 @@ the JAX package's default value (the JAX package reads them from its
 environment).
 """
 
+import base64
 import contextlib
 import dataclasses
 import queue
@@ -105,6 +106,15 @@ TERMINAL_STATUSES = (
     "ok", "failed", "rejected_deadline", "rejected_overload",
     "rejected_circuit", "watchdog_timeout", "shutdown",
 )
+
+
+def _kernel_launches():
+    """{kernel: launches in this process} of every kernel wrapper."""
+    from raft_tpu_torch.kernels import bem_gj, fused_block, gj_solve
+
+    return {"gj_solve": gj_solve.launches,
+            "gj_solve_backward": gj_solve.launches_backward,
+            "fused_block": fused_block.launches, **bem_gj.launches}
 
 
 def _trace_id_of(req):
@@ -643,6 +653,7 @@ class Engine:
             "result_cache_stores": 0, "result_cache_evictions": 0,
             "result_cache_corrupt": 0,
             "handoff_preloaded": 0, "handoff_missing": 0,
+            "wire_preload_loaded": 0, "wire_preload_refused": 0,
             "first_result_s": None, "warmup": None,
         })
         self._gauge_result_bytes = self.metrics.gauge(
@@ -679,6 +690,55 @@ class Engine:
         self._watchdog.start()
 
     # ------------------------------------------------------------- client
+
+    def preload_wire(self, doc):
+        """One chunk of a shared-nothing warm transfer (``POST
+        /v1/cache/preload``).  ``doc["kind"]``:
+
+        * ``"entry"`` — one result-cache entry's raw npz bytes (base64)
+          and their transfer sha256, committed through
+          ``ResultCache.receive_entry``: a torn or corrupt chunk is
+          refused (and deleted when it reached the disk), never served;
+        * ``"manifest"`` — warm-handoff ``[key, kind]`` rows, each warmed
+          by a fully verified read (a missing row is a plain miss);
+        * ``"warmup"`` — warm-up bucket manifest entries, merged into
+          this engine's manifest for its next ``warmup()``.
+
+        Raises ValueError on another kind (HTTP 400).  Host prep is not
+        transferred: it is cheap to rebuild where it is needed."""
+        if self._result_cache is None:
+            return {"error": "result cache disabled on this replica"}
+        kind = (doc or {}).get("kind")
+        if kind == "entry":
+            try:
+                data = base64.b64decode(doc.get("data_b64", ""),
+                                        validate=True)
+            except (ValueError, TypeError):
+                data = None
+            verdict = "refused" if data is None else \
+                self._result_cache.receive_entry(
+                    str(doc.get("key", "")),
+                    str(doc.get("cache_kind", "result")),
+                    data, str(doc.get("sha256", "")))
+            if verdict == "loaded":
+                with self._lock:
+                    self.stats["wire_preload_loaded"] += 1
+                return {"loaded": 1, "refused": 0}
+            with self._lock:
+                self.stats["wire_preload_refused"] += 1
+            return {"loaded": 0, "refused": 1}
+        if kind == "manifest":
+            loaded, missing = self._result_cache.preload(
+                doc.get("entries") or [])
+            with self._lock:
+                self.stats["handoff_preloaded"] += loaded
+                self.stats["handoff_missing"] += missing
+            return {"loaded": loaded, "missing": missing}
+        if kind == "warmup":
+            if self._manifest is None:
+                return {"error": "no warm-up manifest on this replica"}
+            return {"merged": self._manifest.merge(doc.get("entries"))}
+        raise ValueError(f"unknown preload kind {kind!r}")
 
     def submit(self, design, cases=None, deadline_s=None, trace=None):
         """Enqueue one request; returns a handle with ``result(timeout)``.
@@ -2336,6 +2396,8 @@ class Engine:
             # warm-handoff preload outcome
             "handoff_preloaded": self.stats["handoff_preloaded"],
             "handoff_missing": self.stats["handoff_missing"],
+            "wire_preload_loaded": self.stats["wire_preload_loaded"],
+            "wire_preload_refused": self.stats["wire_preload_refused"],
             # served adjoint evaluations
             "grad_requests": self.stats["grad_requests"],
             "grad_ok": self.stats["grad_ok"],
@@ -2357,6 +2419,9 @@ class Engine:
                            if self._lane_devices else None),
             "mesh": "lane" if self._lane_devices else None,
             "flags": self.flags,
+            # this process's kernel launches, so a client of a served
+            # process (chip_smoke.py, a router) sees the kernels ran
+            "kernel_launches": _kernel_launches(),
             # observability surfaces
             "trace_spans": self.trace_ring.snapshot(),
             "profiler": self._profiler.snapshot(),

@@ -27,8 +27,9 @@ The module is integrity-first:
 
 The chaos faults ``corrupt_result_cache``, ``corrupt_manifest`` and
 ``stale_handoff`` hook here through the injector given to
-:class:`ResultCache`.  The wire transfer of entries waits for the
-network tier (ROADMAP.md, queue 1 step 12b).
+:class:`ResultCache`.  ``read_entry_bytes`` / ``receive_entry`` are the
+two ends of the shared-nothing wire transfer of entries (``POST
+/v1/cache/preload``, serve/transport.py).
 """
 
 import hashlib
@@ -616,6 +617,67 @@ class ResultCache:
             else:
                 loaded += 1
         return loaded, missing
+
+    # ------------------------------------- shared-nothing wire transfer
+
+    def read_entry_bytes(self, key):
+        """Raw npz bytes of one stored entry, the payload unit of the
+        shared-nothing warm transfer (``POST /v1/cache/preload``); None
+        when the entry is missing or unreadable (evicted since
+        ``top_entries``: skip it, never an error)."""
+        try:
+            with open(self._path(key), "rb") as fh:
+                return fh.read()
+        except OSError:
+            return None
+
+    def receive_entry(self, key, kind, data, sha256hex):
+        """Commit one checksummed chunk of a wire warm transfer.
+
+        Gates, in order: the TRANSFER checksum (a torn or truncated chunk
+        is refused before any bytes touch the cache dir), an atomic
+        tmp+rename commit, then the standard fully verified read (schema,
+        kind, flag surface, payload checksum), so a chunk that survives
+        transit but carries corrupt or foreign bits is refused and
+        deleted like a shared-dir entry.  Returns ``"loaded"`` or
+        ``"refused"``."""
+        if (not isinstance(key, str) or not key or len(key) > 64
+                or not key.isalnum()):
+            logger.warning("wire preload: malformed entry key %r "
+                           "refused", key)
+            return "refused"
+        if hashlib.sha256(data).hexdigest() != sha256hex:
+            logger.warning(
+                "wire preload: entry %s transfer checksum mismatch (torn "
+                "or corrupt chunk) — refused, nothing written", key)
+            return "refused"
+        path = self._path(key)
+        tmp = path + f".tmp.{os.getpid()}.{next(_tmp_seq)}"
+        try:
+            with open(tmp, "wb") as fh:
+                fh.write(data)
+            os.replace(tmp, path)
+        except OSError as e:
+            logger.warning("wire preload: entry %s write failed (%s: %s)",
+                           key, type(e).__name__, e)
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            return "refused"
+        with self._lock:
+            self.bytes_total += len(data)
+        if kind == "sweep_chunk":
+            hit, _refused = self.get_chunk(key)
+        elif kind == "grad":
+            hit, _refused = self.get_grad(key)
+        else:
+            hit, _refused = self.get_result(key)
+        if hit is None:
+            return "refused"
+        with self._lock:
+            self._evict_locked(exclude=path)
+        return "loaded"
 
     def _refuse(self, key, path, reason):
         """Quarantine one entry: log why, delete it, shrink the byte

@@ -567,13 +567,19 @@ def _chunked_aero_dynamics(model0, cases, wind, aero_on, pitch_mean,
             "relax=%.2g; %d recovered", label, int(retry_mask.sum()),
             nIter2, relax2, n_rec)
 
-    # the overlap: the union-vs-sum saving
+    # the overlap: the union-vs-sum saving and its split into the seconds
+    # the host rotor stage and the card's dynamics were busy together
+    # (cross) and the concurrency among one backend's spans (within)
+    decomp = tracer.overlap_backend_decomposition("aero_second", "dynamics")
     timing = {
         "aero_second_s": t_rotor,
         "dynamics_first_s": tracer.stage_wall("dynamics"),
         "overlap_chunks": len(chunks),
         "overlap_saved_s": tracer.overlap_saved_s("aero_second",
                                                   "dynamics"),
+        "overlap_cross_backend_s": decomp["cross_backend_s"],
+        "overlap_within_backend_s": sum(
+            decomp["within_backend_s"].values()),
         "rotor_dyn_wall_s": t_engine,
     }
     return sol, a_hub, b_hub, F_aero2, telemetry, timing, stats

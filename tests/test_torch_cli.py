@@ -1,13 +1,17 @@
 """``python -m raft_tpu_torch`` end to end on the CPU: the analysis of a
 written design YAML with ``--plot`` (exit 0, the natural frequencies the
 in-process ``run_raft`` prints, both figures written), the serve-stack
-commands (``warmup``, a stdin ``serve`` round trip, the network tier's
-``--http`` refused naming ROADMAP step 12b), and the default device
-refused without a card.  The port has no compile step, so this runs in
-a few seconds (the JAX package's CLI test is ``slow``)."""
+commands (``warmup``, a stdin ``serve`` round trip, and the network
+tier: ``serve --http 0`` and ``serve --http 0 --replicas 2
+--autoscale`` answering over the wire with the in-process engine's bits
+and exiting 0 on SIGTERM), and the default device refused without a
+card.  The port has no compile step, so this runs in seconds (the JAX
+package's CLI test is ``slow``)."""
 
+import json
 import os
 import re
+import signal
 import subprocess
 import sys
 
@@ -49,6 +53,20 @@ def _cli(args, cwd, timeout=120):
                           env=env, cwd=cwd)
 
 
+def _http_server(args, cwd):
+    """Start ``serve --http 0 ...``; returns (process, ready line)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "raft_tpu_torch", "serve", "--http", "0",
+         *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=cwd,
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2"))
+    line = proc.stdout.readline()
+    if not line:
+        proc.wait(30)
+        raise AssertionError(proc.stderr.read()[-2000:])
+    return proc, json.loads(line)
+
+
 def _fn_line(text):
     (line,) = re.findall(r"^Fn \(Hz\).*$", text, re.M)
     return line
@@ -75,13 +93,20 @@ def test_serve_stack_commands_exit_naming_step_12(command, spar, tmp_path):
     ``serve`` answers stdin design lines (a path and an inline dict) with
     result lines whose Xi is the in-process engine's, bit for bit, and a
     second process on the same cache directory replays the manifest and
-    answers warm; ``--http`` (the network tier) exits naming step 12b."""
-    import json
-
+    answers warm.  Then the network tier: ``serve --http 0`` (after
+    ``warmup``) and ``serve --http 0 --replicas 2 --autoscale`` (after
+    ``serve``) answer over the wire with the same bits and exit 0 on
+    SIGTERM; the flags the network tier needs refuse to run alone, and a
+    device list of two cards raises naming ROADMAP step 8 item 2."""
     from raft_tpu_torch.io.schema import load_design
-    from raft_tpu_torch.serve import Engine, EngineConfig
+    from raft_tpu_torch.serve import Engine, EngineConfig, WireClient, wire
 
     cache = str(tmp_path / "cache")
+    design = load_design(spar)
+    with Engine(EngineConfig(device="cpu", precision="float64",
+                             window_ms=1.0,
+                             use_result_cache=False)) as eng:
+        res = eng.evaluate(design, timeout=120)
     if command == "warmup":
         out = _cli(["warmup", spar, "--device", "cpu", "--cache-dir",
                     cache], str(tmp_path))
@@ -91,8 +116,8 @@ def test_serve_stack_commands_exit_naming_step_12(command, spar, tmp_path):
         assert report["nvcc_builds"] == 0
         assert report["flags"]["backend"] == "cpu"
         assert os.path.exists(report["manifest"])
+        http = ["--device", "cpu", "--cache-dir", cache]
     else:
-        design = load_design(spar)
         lines = json.dumps({"design": spar}) + "\n" + json.dumps(
             {"design": _plain(design)}) + "\n"
         docs = []
@@ -109,23 +134,50 @@ def test_serve_stack_commands_exit_naming_step_12(command, spar, tmp_path):
             assert [d["event"] for d in run] == ["ready", "result", "result",
                                                   "shutdown"]
             assert [d["status"] for d in run[1:3]] == ["ok", "ok"]
+            for d in run[1:3]:
+                assert wire.checksum_mismatch(d) is None and d["checksum"]
         assert warm[0]["warmup"]["n_warmed"] == 1
         assert warm[-1]["prep_cache_hits"] + warm[-1]["result_cache_hits"] \
             >= 1
-        with Engine(EngineConfig(device="cpu", precision="float64",
-                                 window_ms=1.0,
-                                 use_result_cache=False)) as eng:
-            res = eng.evaluate(design, timeout=120)
         for run in docs:
             for d in run[1:3]:
                 xi = np.asarray(d["Xi_re"]) + 1j * np.asarray(d["Xi_im"])
                 assert np.array_equal(xi, res.Xi)
-    out = _cli(["serve", "--http", "0", "--device", "cpu"], str(tmp_path))
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr
-    assert "queue 1 step 12b" in out.stderr
-    with pytest.raises(NotImplementedError, match="queue 1 step 12b"):
-        main(["serve", "--http", "0", "--device", "cpu"])
+        http = ["--device", "cpu", "--no-warmup", "--replicas", "2",
+                "--autoscale", "--autoscale-interval", "0.2",
+                "--cache-dir", str(tmp_path / "fleet")]
+    proc, ready = _http_server(http, str(tmp_path))
+    try:
+        assert ready["port"] > 0 and ready["backend"] == "cpu"
+        client = WireClient("127.0.0.1", ready["port"])
+        doc = client.solve({"design": spar, "xi": True})
+        assert doc["status"] == "ok", doc
+        assert np.array_equal(wire.result_from_doc(doc).Xi, res.Xi)
+        _code, stats = client.get("/statz")
+        if command == "serve":
+            assert sorted(ready["spawn_s"]) == ["r0", "r1"]
+            assert doc["replica"] in ("r0", "r1")
+            assert stats["autoscale"]["steps"] >= 0
+            assert len(stats["replicas"]) == 2
+        else:
+            assert ready["replicas"] == 0 and stats["requests"] == 1
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+    assert proc.returncode == 0, err[-2000:]
+    last = json.loads(out.strip().splitlines()[-1])
+    assert last["event"] == "shutdown" and last["accepted"] == 1
+    for argv in (["serve", "--replicas", "2", "--device", "cpu"],
+                 ["serve", "--http", "0", "--autoscale", "--device", "cpu"]):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert e.value.code == 2
+    with pytest.raises(NotImplementedError, match="queue 1 step 8 item 2"):
+        main(["serve", "--http", "0", "--replicas", "2", "--device",
+              "cuda:0,cuda:1"])
 
 
 def test_default_device_raises_without_a_card(spar):

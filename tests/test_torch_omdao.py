@@ -194,24 +194,17 @@ def test_derivative_guards_raise_raft_tpu_messages(opts, match):
         _port(_design(), False).compute_partials({}, {})
 
 
-@pytest.mark.parametrize("opt,value", [("engine", object()),
-                                       ("engine_endpoint", "serve.invalid:9")])
-def test_engine_modes_raise_naming_step_12(opt, value, pair, tmp_path):
-    """``engine_endpoint`` (the HTTP tier) raises naming ROADMAP.md queue
-    1 step 12b.  The ``engine`` mode runs: compute() submits the dynamics
-    to the live engine, bit-identical to ``Model(design,
-    slots=bucket)``'s slotted dispatch, its outputs within round-off of
-    the in-process component's; compute_partials takes served grad
-    requests, the in-process adjoint's rows bit for bit."""
-    if opt == "engine_endpoint":
-        comp = _port(_design(), **{opt: value})
-        with pytest.raises(NotImplementedError, match="queue 1 step 12b"):
-            comp.run()
-        with pytest.raises(NotImplementedError, match="queue 1 step 12b"):
-            comp.compute_partials(comp._inputs, {})
-        return
+@pytest.mark.parametrize("opt", ["engine", "engine_endpoint"])
+def test_engine_modes_raise_naming_step_12(opt, pair, tmp_path):
+    """The ``engine`` mode: compute() submits the dynamics to the live
+    engine, bit-identical to ``Model(design, slots=bucket)``'s slotted
+    dispatch, its outputs within round-off of the in-process component's;
+    compute_partials takes served grad requests, the in-process adjoint's
+    rows bit for bit.  ``engine_endpoint`` (``host:port`` of the HTTP
+    tier) sends the same requests over the wire: its outputs and
+    partials equal the ``engine`` mode's bit for bit."""
     from raft_tpu_torch.model import Model
-    from raft_tpu_torch.serve import Engine, EngineConfig
+    from raft_tpu_torch.serve import Engine, EngineConfig, serve_http
 
     design = _design()
     with Engine(EngineConfig(device="cpu", precision="float64",
@@ -221,6 +214,23 @@ def test_engine_modes_raise_naming_step_12(opt, value, pair, tmp_path):
         comp.run()
         partials = {}
         comp.compute_partials(comp._inputs, partials)
+        if opt == "engine_endpoint":
+            srv = serve_http(eng)
+            try:
+                wired = _port(design,
+                              engine_endpoint=f"127.0.0.1:{srv.port}")
+                wired.run()
+                wired_partials = {}
+                wired.compute_partials(wired._inputs, wired_partials)
+            finally:
+                srv.close()
+            for name, val in comp._outputs.items():
+                assert np.array_equal(np.asarray(wired._outputs[name]),
+                                      np.asarray(val)), name
+            assert wired_partials.keys() == partials.keys()
+            for key, val in partials.items():
+                assert np.array_equal(np.asarray(wired_partials[key]),
+                                      np.asarray(val)), key
         solver = comp._engine_solver(eng, {})
         m_eng = Model(design, device="cpu")
         m_eng.analyze_unloaded()
@@ -245,7 +255,8 @@ def test_engine_modes_raise_naming_step_12(opt, value, pair, tmp_path):
     for key, val in partials.items():
         assert np.array_equal(np.asarray(val),
                               np.asarray(pair[1]["port"][key])), key
-    assert snap["dispatches"] >= 2 and snap["grad_ok"] == 3
+    n = 2 if opt == "engine_endpoint" else 1
+    assert snap["dispatches"] >= 2 and snap["grad_ok"] == 3 * n
 
 
 def test_default_device_raises_without_a_card():

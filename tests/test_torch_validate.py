@@ -26,6 +26,17 @@ from raft_tpu_torch.model import Model
 BARS = {"A": 2e-4, "B": 1e-3, "X": 2e-4}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """The card-form BEM on the CPU runs elementwise loops over many
+    small tensors, faster on a few threads than on a pool oversubscribed
+    beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _short_row(d):
     d["cases"]["data"][0] = d["cases"]["data"][0][:-1]
     d["cases"]["data"][1][5] = "PiersonMoskowitz"

@@ -208,7 +208,27 @@ Phases (each prints a line; any failure raises and exits non-zero):
     drain-first ``retire_replica``; every replica's ``spawn_s``;
 33. serve autoscale: an 8 s open-loop ``loadgen.run_phase`` at 4
     requests/s against a 1-replica router with its autoscaler: p50 and
-    p95, the statuses, the scale events, lost = 0.
+    p95, the statuses, the scale events, lost = 0;
+34. the streamed out-of-core BEM solve at phase 13's mesh: the panel
+    limit lowered in-process and the band budget shrunk (5 bands of 512
+    rows, 2 elimination stages), one frequency, 10 launches of each BEM
+    kernel, held against phase 13's direct result: bit for bit, else
+    within raft_tpu's cross-path bars (A and X 2e-4, B 1e-3);
+35. ``solve_bem(report_cost=True)`` at phase 13's mesh and middle
+    frequency: the flops, the elimination's share, the flops over the
+    timed device seconds, and phase 13's bits;
+36. the streamed path at full width: the flagship's hull meshed finer
+    (10472 panels with lids, padded to 10496, above the real
+    ``STREAM_PANEL_LIMIT``) at one frequency in deep water: the bands and
+    stages, 2N/512 launches of each BEM kernel, the host Rankine and
+    device seconds, the peak device memory beside the counted live set;
+    then the direct card-form solve of the same mesh in this process: the
+    same bits (or the bars of 34) and a streamed peak no higher;
+37. ``python -m raft_tpu_torch serve --device cuda`` (the stdin loop):
+    one request answered with stdin held open, then SIGTERM: the
+    shutdown line and exit 0 within 15 s;
+38. ``python -m raft_tpu_torch.analysis`` (the port's lints) on this
+    machine, which has no jax: exit 0.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  In the kernel table ``ms`` is the
@@ -222,7 +242,8 @@ compute() and compute_partials, ``launches_cli`` and
 ``launches_checked`` phases 23 and 24, ``launches_serve_http``,
 ``launches_router`` and ``launches_autoscale`` the launches the served
 processes of phases 31-33 report; ``launches_omdao_bem`` of the BEM
-kernels is phase 22's run_native_BEM compute().
+kernels is phase 22's run_native_BEM compute(), ``launches_streamed``
+phase 36's full-width streamed solve.
 Without CUDA, or without the raft_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -3104,6 +3125,265 @@ def net_phases(rt):
     return dict(http=l_http, router=l_router, autoscale=l_scale)
 
 
+# ------------------------------------------------ BEM left-overs, lints
+
+# phase 34: the band budget that splits phase 13's 2560 padded panels into
+# 5 bands of 512 rows and the elimination into 2 stages of 5 block steps
+STREAM_CELL_BUDGET_S = 0.5
+# phase 36: the flagship's hull meshed finer: 9960 hull and 512 lid panels,
+# 10472 in all (above STREAM_PANEL_LIMIT), padded to 10496
+FULL_WIDTH_MESH = dict(dz_max=1.4, da_max=0.9)
+FULL_WIDTH_OMEGA = 0.6
+STREAM_BARS = (("A", 2e-4), ("B", 1e-3), ("X", 2e-4))
+
+
+def _bem_cell_panels(model):
+    """Phase 13's mesh of the potential-flow flagship and its lids."""
+    from raft_tpu_torch import mesh
+
+    panels = mesh.mesh_platform([m for m in model.members if m.potMod],
+                                dz_max=3.0, da_max=2.0)
+    return panels, mesh.lid_panels_from_mesh(panels)
+
+
+def _same_coeffs(out, ref, what):
+    """(bit_identical, gaps): bits equal, else within raft_tpu's
+    cross-path bars (A and X 2e-4 of their largest value, B 1e-3)."""
+    same = all(np.array_equal(out[k], ref[k]) for k, _ in STREAM_BARS)
+    gaps = {k: float(np.abs(out[k] - ref[k]).max() / np.abs(ref[k]).max())
+            for k, _ in STREAM_BARS}
+    if not same and not all(gaps[k] <= bar for k, bar in STREAM_BARS):
+        raise AssertionError(f"{what}: differs beyond the bars {gaps}")
+    return same, gaps
+
+
+def _streamed(tb, limit, budget):
+    """Set the streamed path's panel limit and band budget; returns the
+    old pair."""
+    old = (tb.STREAM_PANEL_LIMIT, tb.STREAM_BAND_BUDGET_S)
+    tb.STREAM_PANEL_LIMIT, tb.STREAM_BAND_BUDGET_S = limit, budget
+    return old
+
+
+def bem_stream_cell_phase(rt, bg, Timers, model):
+    """Phase 34: phase 13's mesh through the streamed path (panel limit
+    lowered in-process, band budget shrunk: 5 bands, 2 stages) at phase
+    13's middle frequency, held against phase 13's direct card-form
+    result (the Rankine part is cached, so this is device time only)."""
+    from raft_tpu_torch import bem_solver as tb
+
+    coeffs = model.bem_coeffs
+    panels, lids = _bem_cell_panels(model)
+    i = len(coeffs.w) // 2
+    ref = {"A": coeffs.A[i:i + 1], "B": coeffs.B[i:i + 1],
+           "X": coeffs.X[i:i + 1]}
+    old = _streamed(tb, 1000, STREAM_CELL_BUDGET_S)
+    try:
+        bg.reset_launches()
+        with Timers() as tm:
+            out = tb.solve_bem(panels, [coeffs.w[i]],
+                               betas=np.deg2rad(coeffs.headings),
+                               rho=model.rho_water, g=model.g,
+                               depth=model.depth, lid_panels=lids)
+        launches = dict(bg.launches)
+    finally:
+        _streamed(tb, *old)
+    blocks = 2 * out["npanels_solved"] // 512
+    plan = (out.get("streamed"), out.get("stream_bands"),
+            out.get("stream_solve_dispatches"))
+    if plan != (True, 5, 2) or launches != dict.fromkeys(launches, blocks):
+        raise AssertionError(f"streamed BEM cell: plan {plan}, launches "
+                             f"{launches}")
+    same, gaps = _same_coeffs(out, ref, "streamed vs direct at the BEM cell")
+    print(f"phase bem streamed cell: panels={out['npanels']} solved_as="
+          f"{out['npanels_solved']} w={coeffs.w[i]:.4f} bands=5 stages=2 "
+          f"launches={launches} device_s="
+          f"{tm.report()['bem_device']['total_s']:.3f} | against phase 13's "
+          f"direct solve: bit_identical={same} gap_A={gaps['A']:.2e} gap_B="
+          f"{gaps['B']:.2e} gap_X={gaps['X']:.2e}", flush=True)
+
+
+def bem_report_cost_phase(rt, bg, Timers, model):
+    """Phase 35: phase 13's direct solve at its middle frequency with
+    ``report_cost=True``: flops, the elimination's share, and flops over
+    the timed device seconds; the coefficients are phase 13's bits."""
+    from raft_tpu_torch import bem_solver as tb
+
+    coeffs = model.bem_coeffs
+    panels, lids = _bem_cell_panels(model)
+    i = len(coeffs.w) // 2
+    bg.reset_launches()
+    with Timers() as tm:
+        out = tb.solve_bem(panels, [coeffs.w[i]],
+                           betas=np.deg2rad(coeffs.headings),
+                           rho=model.rho_water, g=model.g, depth=model.depth,
+                           lid_panels=lids, report_cost=True)
+    device_s = tm.report()["bem_device"]["total_s"]
+    cost = tb.solve_cost(out["npanels_solved"], len(coeffs.headings),
+                         finite=bool(np.isfinite(model.depth)))
+    ref = {"A": coeffs.A[i:i + 1], "B": coeffs.B[i:i + 1],
+           "X": coeffs.X[i:i + 1]}
+    same, _ = _same_coeffs(out, ref, "report_cost solve vs phase 13")
+    if not (out["flops"] == cost["total"] and same):
+        raise AssertionError(f"report_cost: flops {out.get('flops')} vs "
+                             f"{cost['total']}, same bits {same}")
+    share = {k: cost[k] / cost["total"] for k in cost if k != "total"}
+    print(f"phase bem report_cost: panels={out['npanels_solved']} w="
+          f"{coeffs.w[i]:.4f} flops={out['flops']:.4e} (assembly "
+          f"{share['assembly']:.4f}, elimination {share['elimination']:.4f}"
+          f", system {share['system']:.2e}, integrals "
+          f"{share['integrals']:.2e}) device_s={device_s:.3f} rate="
+          f"{out['flops'] / device_s / 1e12:.2f} TFLOP/s launches="
+          f"{dict(bg.launches)} bit_identical_to_phase_13={same}",
+          flush=True)
+
+
+def bem_full_width_phase(rt, bg, Timers, model):
+    """Phase 36: the flagship's hull meshed finer, above the real
+    ``STREAM_PANEL_LIMIT``, solved at one frequency in deep water: the
+    streamed path on the card (its bands, stages, launches, host and
+    device seconds, peak device memory beside the counted live set), then
+    in the same process the direct card-form solve of the same mesh with
+    the limit raised: the same bits (or raft_tpu's bars) and a streamed
+    peak no higher than the direct one."""
+    from raft_tpu_torch import bem_solver as tb
+    from raft_tpu_torch import mesh
+
+    panels = mesh.mesh_platform([m for m in model.members if m.potMod],
+                                **FULL_WIDTH_MESH)
+    lids = mesh.lid_panels_from_mesh(panels)
+    n_real = len(panels) + len(lids)
+    if not tb.STREAM_PANEL_LIMIT < n_real <= 12000:
+        raise AssertionError(f"full-width mesh of {n_real} panels")
+    kw = dict(betas=[0.0], rho=model.rho_water, g=model.g, depth=np.inf,
+              lid_panels=lids, backend="cuda")
+    # keep this mesh's Rankine part (two [N, N] float32) for the direct
+    # solve below
+    cache_bytes = tb._RANKINE_CACHE_BYTES
+    tb._RANKINE_CACHE_BYTES = 8 << 30
+    cached = set(tb._rankine_cache)
+    runs = {}
+    try:
+        for name, limit in (("streamed", tb.STREAM_PANEL_LIMIT),
+                            ("direct", 10 ** 9)):
+            old = _streamed(tb, limit, tb.STREAM_BAND_BUDGET_S)
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                bg.reset_launches()
+                with Timers() as tm:
+                    t0 = time.perf_counter()
+                    out = tb.solve_bem(panels, [FULL_WIDTH_OMEGA], **kw)
+                    wall = time.perf_counter() - t0
+                rep = {k: v["total_s"] for k, v in tm.report().items()}
+                runs[name] = dict(out=out, launches=dict(bg.launches),
+                                  peak=torch.cuda.max_memory_allocated()
+                                  - base, wall=wall,
+                                  rankine=rep["bem_rankine"],
+                                  device=rep["bem_device"])
+            finally:
+                _streamed(tb, *old)
+    finally:
+        tb._RANKINE_CACHE_BYTES = cache_bytes
+        for key in set(tb._rankine_cache) - cached:
+            del tb._rankine_cache[key]
+    s, d = runs["streamed"], runs["direct"]
+    n = s["out"]["npanels_solved"]
+    blocks = 2 * n // 512
+    if not s["out"].get("streamed") or "streamed" in d["out"] \
+            or s["launches"] != dict.fromkeys(s["launches"], blocks):
+        raise AssertionError(f"full width: streamed={s['out'].get('streamed')}"
+                             f" launches {s['launches']} (expected {blocks})")
+    same, gaps = _same_coeffs(s["out"], d["out"], "full-width streamed vs "
+                              "direct")
+    if s["peak"] > d["peak"]:
+        raise AssertionError(f"streamed peak {s['peak']} B above the "
+                             f"direct {d['peak']} B")
+    # the live set while a stage runs: S0, K0 (f32), S (c64), the
+    # [A | b] buffer and the step's new one (f32, 2N x (2N + 8))
+    live = 4 * 2 * n * n + 8 * n * n + 2 * 4 * 2 * n * (2 * n + 8)
+    gib = 1 << 30
+    print(f"phase bem full width: panels={s['out']['npanels']} "
+          f"({len(panels)} hull + {len(lids)} lid) solved_as={n} "
+          f"w={FULL_WIDTH_OMEGA} deep water | streamed: bands="
+          f"{s['out']['stream_bands']} stages="
+          f"{s['out']['stream_solve_dispatches']} launches={s['launches']} "
+          f"rankine_s={s['rankine']:.1f} device_s={s['device']:.3f} "
+          f"wall_s={s['wall']:.1f} peak={s['peak'] / gib:.3f} GiB "
+          f"(counted live set {live / gib:.3f} GiB) | direct: launches="
+          f"{d['launches']} device_s={d['device']:.3f} rankine_s="
+          f"{d['rankine']:.2f} (cached) peak={d['peak'] / gib:.3f} GiB | "
+          f"bit_identical={same} gap_A={gaps['A']:.2e} gap_B="
+          f"{gaps['B']:.2e} gap_X={gaps['X']:.2e}", flush=True)
+    return s["launches"]
+
+
+def serve_sigterm_phase(rt):
+    """Phase 37: ``python -m raft_tpu_torch serve --device cuda`` (stdin
+    loop): one flagship request answered with stdin still open, then
+    SIGTERM; the shutdown line and exit 0 within 15 s."""
+    import os
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "raft_tpu_torch", "serve", "--device", CARD,
+         "--no-warmup"], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root))
+    try:
+        ready = json.loads(proc.stdout.readline() or "{}")
+        if ready.get("event") != "ready":
+            raise AssertionError(f"serve exited: {proc.stderr.read()[-3000:]}")
+        proc.stdin.write(json.dumps({"design": _plain(flagship(rt))}) + "\n")
+        proc.stdin.flush()
+        result = json.loads(proc.stdout.readline() or "{}")
+        if result.get("event") != "result" or result.get("status") != "ok":
+            raise AssertionError(f"serve answered {str(result)[:500]}")
+        answer_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=15)
+        stop_s = time.perf_counter() - t1
+        out = proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        proc.stdin.close()
+    last = json.loads(out.strip().splitlines()[-1])
+    if rc != 0 or last.get("event") != "shutdown" \
+            or last.get("signal") != signal.SIGTERM:
+        raise AssertionError(f"serve SIGTERM: rc={rc} last={str(last)[:500]}")
+    print(f"phase serve stdin sigterm: one request answered in "
+          f"{answer_s:.2f} s (process start included), stdin held open, "
+          f"SIGTERM -> shutdown line and exit 0 in {stop_s:.2f} s "
+          f"(accepted={last.get('requests')} ok={last.get('ok')})",
+          flush=True)
+
+
+def lint_phase():
+    """Phase 38: ``python -m raft_tpu_torch.analysis`` on this machine
+    (no jax here): exit 0."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-m", "raft_tpu_torch.analysis", "--json"],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root))
+    if out.returncode != 0:
+        raise AssertionError(f"lint exit {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}{out.stderr[-2000:]}")
+    doc = json.loads(out.stdout)
+    print(f"phase lint: python -m raft_tpu_torch.analysis exit 0, "
+          f"{doc['n_rules']} rules, {doc['n_findings']} findings, "
+          f"{doc['n_allowlisted']} allowlisted", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3157,6 +3437,11 @@ def main():
     l_checked = checked_phase(rt, gk)
     l_serve = serve_phases(rt, gk, fk)
     l_net = net_phases(rt)
+    bem_stream_cell_phase(rt, bg, Timers, bem_model)
+    bem_report_cost_phase(rt, bg, Timers, bem_model)
+    l_stream = bem_full_width_phase(rt, bg, Timers, bem_model)
+    serve_sigterm_phase(rt)
+    lint_phase()
     new_paths = dict(serve=l_serve["coalesce"]["gj_solve"],
                      serve_http=l_net["http"]["gj_solve"],
                      serve_http_backward=l_net["http"]["gj_solve_backward"],
@@ -3167,7 +3452,8 @@ def main():
                      omdao=l_omdao["gj_solve"],
                      backward_omdao=l_omdao["gj_solve_backward"],
                      cli=l_cli["gj_solve"], checked=l_checked["gj_solve"],
-                     **{f"omdao_bem_{k}": v for k, v in l_omdao_bem.items()})
+                     **{f"omdao_bem_{k}": v for k, v in l_omdao_bem.items()},
+             **{f"streamed_{k}": v for k, v in l_stream.items()})
     if not all(v > 0 for v in new_paths.values()):
         raise AssertionError(f"a kernel was not launched on a new path: "
                              f"{new_paths}")
@@ -3221,16 +3507,19 @@ def main():
              source="raft_tpu_torch/csrc/tile_inv.cu",
              replaces="raft_tpu/pallas_kernels.py:208",
              launches=l_bem["tile_inv"],
-             launches_omdao_bem=l_omdao_bem["tile_inv"], **ti32),
+             launches_omdao_bem=l_omdao_bem["tile_inv"],
+             launches_streamed=l_stream["tile_inv"], **ti32),
         dict(name="mm", route="cuda", source="raft_tpu_torch/csrc/mm.cu",
              replaces="raft_tpu/pallas_kernels.py:253",
              launches=l_bem["mm"],
              launches_omdao_bem=l_omdao_bem["mm"],
+             launches_streamed=l_stream["mm"],
              **mm32[torch.float32]["mm"]),
         dict(name="mm_sub", route="cuda", source="raft_tpu_torch/csrc/mm.cu",
              replaces="raft_tpu/pallas_kernels.py:263",
              launches=l_bem["mm_sub"],
              launches_omdao_bem=l_omdao_bem["mm_sub"],
+             launches_streamed=l_stream["mm_sub"],
              **mm32[torch.float32]["mm_sub"]),
     ]
     for k in kernels:

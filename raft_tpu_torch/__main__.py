@@ -261,7 +261,9 @@ def _serve_http_main(args, backend, ready):
 
 
 def _serve_main(argv):
+    import queue
     import signal
+    import threading
 
     p = _serve_parser(
         "raft_tpu_torch serve",
@@ -336,28 +338,47 @@ def _serve_main(argv):
     eng = Engine(cfg)
     sig = None
     pending = []
+    # stdin is read on a daemon thread that feeds a queue (None at EOF),
+    # and the main thread waits on the queue in timed slices: the signal
+    # may land on another of the process's threads (the CUDA runtime's),
+    # and the handler only runs once the main thread executes bytecode
+    # again, which a blocking read of stdin would never let it do
+    lines = queue.Queue()
+
+    def _read_stdin():
+        for ln in sys.stdin:
+            lines.put(ln)
+        lines.put(None)
+
     try:
         _emit(_ready(eng, report))
-        for line in sys.stdin:
-            line = line.strip()
-            if not line:
-                continue
+        threading.Thread(target=_read_stdin, name="serve-stdin",
+                         daemon=True).start()
+        while True:
             try:
-                req = json.loads(line)
-                if "sweep" in req:
-                    _emit_sweep(eng, req["sweep"], load_design, pending,
-                                args.xi)
-                    continue
-                design = req["design"]
-                if isinstance(design, str):
-                    design = load_design(design)
-                pending.append(eng.submit(
-                    design, cases=req.get("cases"),
-                    deadline_s=req.get("deadline_s")))
-            except Exception as e:  # noqa: BLE001 — bad line, keep serving
-                _emit({"event": "error",
-                       "error": f"{type(e).__name__}: {e}"})
-                continue
+                line = lines.get(timeout=0.5)
+            except queue.Empty:
+                line = ""
+            if line is None:
+                break
+            line = line.strip()
+            if line:
+                try:
+                    req = json.loads(line)
+                    if "sweep" in req:
+                        _emit_sweep(eng, req["sweep"], load_design, pending,
+                                    args.xi)
+                    else:
+                        design = req["design"]
+                        if isinstance(design, str):
+                            design = load_design(design)
+                        pending.append(eng.submit(
+                            design, cases=req.get("cases"),
+                            deadline_s=req.get("deadline_s")))
+                # a bad line gets an error line; the loop keeps serving
+                except Exception as e:  # noqa: BLE001
+                    _emit({"event": "error",
+                           "error": f"{type(e).__name__}: {e}"})
             while pending and pending[0].done():
                 _emit(_result_line(pending.pop(0).result(0), args.xi))
     except _SignalShutdown as e:

@@ -39,10 +39,15 @@ finite-depth difference: a seabed-image Rankine term plus the
 pole-subtracted quadrature correction of the wave term
 (greens.finite_depth_correction) and the cosh-profile incident wave.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-step): the streamed out-of-core path for card-form meshes above
-``STREAM_PANEL_LIMIT`` panels, the multi-device path (``n_devices`` > 1)
-and ``report_cost=True``.
+Card-form meshes above ``STREAM_PANEL_LIMIT`` panels take the streamed
+out-of-core path (:func:`_run_streamed`): per frequency the assembly in
+row bands and the elimination in stages, with a host sync after each,
+bit for bit the direct path's result.  ``report_cost=True`` adds
+``flops``, the operation count of :func:`solve_cost` (the JAX package
+reads XLA's compiled cost; the port counts its own).
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
+step): the multi-device path (``n_devices`` > 1).
 """
 
 import math
@@ -52,9 +57,14 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import greens
-from raft_tpu_torch.kernels.bem_gj import gj_stage
+from raft_tpu_torch.kernels.bem_gj import (
+    RHS_ALIGN,
+    gj_buffer,
+    gj_stage,
+    gj_stage_buffer,
+)
 from raft_tpu_torch.utils.placement import resolve_device
-from raft_tpu_torch.utils.profiling import timer
+from raft_tpu_torch.utils.profiling import logger, timer
 
 _G_GAUSS = np.array([-1.0 / np.sqrt(3.0), 1.0 / np.sqrt(3.0)])
 _PI = math.pi
@@ -68,9 +78,41 @@ _C64 = torch.complex64
 BLOCKED_GJ_MIN_PANELS = 1024
 GJ_BLOCK = 512
 
-# Card-form meshes above this many panels take the JAX package's streamed
-# out-of-core path, which is not ported yet.
+# Card-form meshes above this many panels (before padding) take the
+# streamed out-of-core path (_run_streamed).  The limit is the JAX
+# package's, so both packages take the same path on the same mesh.  On
+# this card it is not a memory bound: the direct path at 10496 padded
+# panels peaked at 9.94 GiB of the card's 80 GB, and the streamed path
+# was no faster there (chip_smoke.py phase 36, NVIDIA H100 80GB HBM3,
+# 700.00 W).  ROADMAP.md queue 3 item 35: derive the limit from the
+# direct path's ~96 N^2 bytes against the card's memory.
 STREAM_PANEL_LIMIT = 10240
+
+# The streamed path's plan, in this card's numbers (NVIDIA H100 80GB HBM3,
+# 700.00 W).  The wave-term assembly of one frequency at 2560 panels took
+# 1.6-2.2 s at 200 m depth (chip_smoke.py phase 13, the run_bem table of
+# docs/torch_port.md section 5); the plan takes the upper end and scales
+# it as N^2.  The elimination rate is the f32 mm + mm_sub of one step at
+# 2N = 5120 (2.69e9 + 2.69e10 operations in 0.06621 + 0.49014 ms,
+# chip_smoke.py phase 12, the kernel table of docs/torch_port.md section
+# 6): 53 TFLOP/s.
+_ASSEMBLY_S_AT_2560 = 2.2
+_GJ_FLOPS_PER_S = 53e12
+# Device seconds between two host syncs of the streamed path: one band of
+# the assembly, or one stage of the elimination, per sync.  The card has
+# no watchdog; the bands bound how long the host waits on the card before
+# it runs again (a timer reads, a signal handler runs, a fault shows in
+# the band that caused it).  They do not bound the peak device memory:
+# every band writes into the preallocated [N, N] matrices, and the
+# assembly's temporaries are one row block's (_ROW_BLOCK_POINTS) whatever
+# the band.  At 10496 panels in deep water (chip_smoke.py phase 36, its
+# first run in docs/torch_port.md section 6, NVIDIA H100 80GB HBM3,
+# 700.00 W) the plan gives 41 bands and the frequency took 4.59 s of
+# device time (the plan's N^2 scaling of a finite-depth figure expects
+# 37 s), so a sync came every ~0.1 s; the peak was 6.65 GiB against the
+# direct path's 9.94 GiB.  Tests shrink the budget to force many bands
+# and stages.
+STREAM_BAND_BUDGET_S = 5.0
 
 # Row block of the card form's assembly: the Chebyshev basis temporaries
 # are [rows * N * Q, deg + 1]; rows are chosen so rows * N * Q stays under
@@ -430,6 +472,109 @@ def _post_assembly(omega, nu, k0, S, K, betas, x, nrm, area, vmodes, jump,
     return _integrate_outputs(omega, sigma, S, phiI, area, vmodes, rho)
 
 
+def _stream_plan(n, band_budget_s=None):
+    """The streamed path's plan for a padded mesh of ``n`` panels:
+    ``(D, steps)`` — ``D`` row bands of the assembly (they tile the mesh's
+    ``n // 256`` units of 256 rows) and the block steps of each
+    elimination stage (at least 2 stages where there are 2 steps).  The
+    JAX package's formulas with this card's constants; at a budget of
+    1e-4 s both give one band per unit and one stage per step."""
+    budget = STREAM_BAND_BUDGET_S if band_budget_s is None else band_budget_s
+    per_freq_s = _ASSEMBLY_S_AT_2560 * (n / 2560.0) ** 2
+    units = n // 256
+    D = min(units, max(1, math.ceil(per_freq_s / budget)))
+    while units % D:                  # bands tile the padded mesh
+        D += 1
+    nblk_total = (2 * n) // GJ_BLOCK
+    t_gj = 2.0 * (2.0 * n) ** 3 / _GJ_FLOPS_PER_S
+    n_stages = min(nblk_total, max(2, math.ceil(t_gj / budget)))
+    steps = [nblk_total // n_stages + (1 if s < nblk_total % n_stages
+                                       else 0) for s in range(n_stages)]
+    return D, steps
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_streamed(omegas, betas, x, nrm, area, y, w_q, S0, K0, vmodes, jump,
+                  tables, g, rho, depth, kmax_geom, finite):
+    """The streamed out-of-core card-form solve, one frequency after
+    another, with a host sync after each band and each stage:
+
+      * bands: the wave-term rows of ``D`` row bands, each written
+        straight into preallocated [N, N] complex matrices, in the direct
+        path's row blocks where they divide the band (on every mesh above
+        ``STREAM_PANEL_LIMIT``: its blocks are at most 64 rows, its bands
+        whole 256-row units), else in blocks of their greatest common
+        divisor;
+      * system: ``S0``/``K0`` added in place, ``lhs`` and the incident
+        wave, and the real 2N x 2N block system, copied once into the
+        ``[A | b]`` buffer of the elimination;
+      * stages: the blocked Gauss–Jordan in stages of consecutive block
+        steps (:func:`gj_stage_buffer` on that one buffer; the stages
+        compose to the whole elimination);
+      * integrals: the pressure integrals (:func:`_integrate_outputs`).
+
+    Every operation is the direct path's on the same operands, so the
+    result is the direct card-form solve's, bit for bit.  The live set
+    while a stage runs is ``S0``, ``K0`` (f32), ``S`` (c64), ``[A | b]``
+    and the step's new buffer (f32, 2N x (2N + m_pad) each): about
+    48 N^2 bytes, against about 96 N^2 for the direct path (which also
+    holds ``S0``/``K0`` as c64, ``K``, ``lhs`` and the block matrix).
+    During the assembly it is 24 N^2 bytes and one row block's
+    temporaries, which set the peak at 10496 panels: 6.65 GiB against
+    4.93 GiB counted for a stage (chip_smoke.py phase 36, its first run
+    in docs/torch_port.md section 6; NVIDIA H100 80GB HBM3, 700.00 W).
+    Returns ((A, B, Xr, Xi), {"bands": D, "solve_stages": S})."""
+    N = x.shape[0]
+    dev = x.device
+    D, steps = _stream_plan(N)
+    rows = N // D
+    RB = math.gcd(_row_block(N, y.shape[1], True), rows)
+    m = 6 + betas.shape[0]
+    out = []
+    for omega in omegas:
+        nu = omega * omega / g
+        k0 = greens.dispersion_k0(nu, depth) if finite else nu
+        S = torch.empty((N, N), dtype=_C64, device=dev)
+        K = torch.empty((N, N), dtype=_C64, device=dev)
+        for b0 in range(0, N, rows):
+            for r0 in range(b0, b0 + rows, RB):
+                S[r0:r0 + RB], K[r0:r0 + RB] = _wave_rows(
+                    nu, k0, x[r0:r0 + RB], nrm[r0:r0 + RB], y, w_q, tables,
+                    depth, kmax_geom, finite)
+            _sync(dev)
+        # the direct path's S0 + Sw, K0 + Kw and K / 4 pi + diag(jump)
+        S.add_(S0)
+        K.add_(K0)
+        K.div_(4 * _PI)
+        K.add_(torch.diag(jump).to(_C64))
+        phiI, dphiIdn = _incident_wave(omega, nu, k0, betas, x, nrm, g,
+                                       depth, finite)
+        rhs = torch.cat([vmodes.to(_C64), -dphiIdn], dim=0)    # [6+nb,N]
+        A2, b2 = _real_block_system(K, rhs)
+        del K, rhs
+        Ab = gj_buffer(A2, b2)
+        del A2, b2
+        _sync(dev)
+        kb0 = 0
+        for ns in steps:
+            Ab = gj_stage_buffer(Ab, 2 * N, kb0, ns, GJ_BLOCK)
+            _sync(dev)
+            kb0 += ns
+        sol = Ab[:, 2 * N:2 * N + m]
+        del Ab
+        sigma = torch.complex(sol[:N], sol[N:]).T              # [6+nb,N]
+        out.append(_integrate_outputs(omega, sigma, S, phiI, area, vmodes,
+                                      rho))
+        del S, sol, sigma
+        _sync(dev)
+    res = tuple(torch.stack([o[j] for o in out]) for j in range(4))
+    return res, {"bands": D, "solve_stages": len(steps)}
+
+
 # frequency-independent Rankine matrices keyed by (mesh bytes, depth) —
 # raw bytes, so distinct meshes can never collide; FIFO bound by total
 # byte budget (each entry is two [N,N] f32 matrices)
@@ -487,12 +632,15 @@ def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
         card form and 'cpu' for the CPU form.  The card form on the CPU
         runs the blocked Gauss–Jordan through the kernels' plain versions.
     n_devices : None or 1 (the single-device solve).
+    report_cost : add ``flops``, :func:`solve_cost` times the number of
+        frequencies (not on the streamed path, as in the JAX package).
     Returns dict with A [nw,6,6], B [nw,6,6] and X [nw, nbeta, 6] complex
     (excitation per unit wave amplitude, e^{+iwt} convention,
-    PRP-referenced), plus the panel counts.
+    PRP-referenced), plus the panel counts; a card-form mesh above
+    ``STREAM_PANEL_LIMIT`` panels takes the streamed path and adds
+    ``streamed`` (True), ``stream_bands`` and ``stream_solve_dispatches``
+    (the bands and elimination stages per frequency).
     """
-    if report_cost:
-        raise _not_ported("solve_bem(report_cost=True)", 9)
     if n_devices is not None and int(n_devices) > 1:
         raise _not_ported("the multi-device BEM solve (n_devices > 1)", 9)
     backend = "cuda" if backend is None else backend
@@ -521,10 +669,12 @@ def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
         kmax_geom = 15.0 / (depth - draft)
     else:
         kmax_geom = 0.0
-    if real_block and pa.n > STREAM_PANEL_LIMIT:
-        raise _not_ported(
-            f"the streamed out-of-core BEM solve ({pa.n} panels > "
-            f"{STREAM_PANEL_LIMIT})", 9)
+    streamed = real_block and pa.n > STREAM_PANEL_LIMIT
+    if streamed:
+        logger.info(
+            "solve_bem: %d panels exceeds %d; using the streamed "
+            "out-of-core path (band assembly and staged elimination per "
+            "frequency)", pa.n, STREAM_PANEL_LIMIT)
     if real_block:
         # the blocked solve's 512-row block multiple
         pa = pad_panel_arrays(pa)
@@ -559,17 +709,19 @@ def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
     else:
         tables = tuple(put(t) for t in greens.load_tables())
     omegas = np.atleast_1d(np.asarray(omegas, float))
+    ops = (put(omegas), put(np.atleast_1d(np.asarray(betas, float))),
+           put(pa.cen), put(pa.nrm), put(pa.area), put(pa_wave.qpts),
+           put(pa_wave.qwts), put(S0), put(K0), put(vmodes), put(jump),
+           tables, float(g), float(rho))
+    depth_ops = (put(depth if np.isfinite(depth) else 0.0), put(kmax_geom),
+                 bool(np.isfinite(depth)))
     with timer("bem_device"):
-        A, B, Xr, Xi = _solve_all(
-            put(omegas), put(np.atleast_1d(np.asarray(betas, float))),
-            put(pa.cen), put(pa.nrm), put(pa.area), put(pa_wave.qpts),
-            put(pa_wave.qwts), put(S0), put(K0), put(vmodes), put(jump),
-            tables, float(g), float(rho), real_block,
-            put(depth if np.isfinite(depth) else 0.0), put(kmax_geom),
-            bool(np.isfinite(depth)))
-        A, B, Xr, Xi = (t.cpu().numpy().astype(np.float64)
-                        for t in (A, B, Xr, Xi))
-    return {
+        if streamed:
+            res, plan = _run_streamed(*ops, *depth_ops)
+        else:
+            res = _solve_all(*ops, real_block, *depth_ops)
+        A, B, Xr, Xi = (t.cpu().numpy().astype(np.float64) for t in res)
+    out = {
         "w": omegas,
         "A": A,
         "B": B,
@@ -578,6 +730,95 @@ def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
         "npanels": n_real,
         "npanels_solved": pa.n,   # incl. inert padding in the card form
     }
+    if streamed:
+        # as in the JAX package, the streamed path reports no cost
+        out.update(streamed=True, stream_bands=plan["bands"],
+                   stream_solve_dispatches=plan["solve_stages"])
+    elif report_cost:
+        out["flops"] = len(omegas) * solve_cost(
+            pa.n, len(np.atleast_1d(betas)), real_block,
+            bool(np.isfinite(depth)), pa_wave.qpts.shape[1])["total"]
+    return out
+
+
+# Operations per pair-quadrature point of the wave-term assembly, counted
+# from the code: one per element of every elementwise operation (a
+# comparison or a select counts one, a complex add 2, a complex-by-real
+# product 2, a complex product 6), the Q-sums as adds.
+# tests/test_torch_bem_solver.py recounts them under a dispatch mode.
+_OPS_ROWS = 26         # _wave_rows: distances, directions, the two Q-sums
+_OPS_CHEB = 1415       # wave_term_cheb without its patch (region masks,
+#                        the special functions, _combine_wave_outputs)
+_OPS_TABLE = 435       # wave_term (bilinear tables, _combine_wave_outputs)
+_OPS_FD_PAIR = 257     # finite_depth_correction: poles, residues, tails
+_OPS_FD_NODE = 148     # ... and per quadrature node
+_FD_NODES = 80         # its n1 + n2 + n3 nodes
+_CHEB_D_PATCH = (48, 40)
+
+
+def _patch_ops(na, nb):
+    """Operations of one Chebyshev patch of degrees (na, nb) at one pair
+    (greens._cheb_patch): the two bases, then for F and F1 the
+    [nb+1, na+1] @ [na+1] product and the dot with the b-basis."""
+    return (2 * (na + nb) + 2 * 2 * (na + 1) * (nb + 1)
+            + 2 * (2 * nb + 1))
+
+
+def solve_cost(n, nbeta, real_block=True, finite=False, Q=4,
+               cheb_degree=_CHEB_D_PATCH):
+    """Operations of the direct solve of one frequency over a mesh of
+    ``n`` panels (padded, in the card form) with ``nbeta`` headings and
+    ``Q`` quadrature points per source panel, as a sum of per-stage closed
+    forms (``m = 6 + nbeta`` right-hand sides, ``P = n^2 Q`` pair points):
+
+      assembly     P (_OPS_ROWS + w + f)     w = _OPS_CHEB + patch(na, nb)
+                                             in the card form (every pair
+                                             charged the patch of degrees
+                                             ``cheb_degree``, by default
+                                             the near-field D patch),
+                                             _OPS_TABLE in the CPU form;
+                                             f = _OPS_FD_PAIR + 80
+                                             _OPS_FD_NODE at finite depth
+      patch(a, b)  2 (a + b) + 4 (a+1)(b+1) + 2 (2b + 1)
+      system       8 n^2                     S0 + Sw, K0 + Kw, K / 4 pi,
+                                             + diag(jump), as complex
+      elimination  card form, blocked (n > BLOCKED_GJ_MIN_PANELS): with
+                   r = 2n rows, b = GJ_BLOCK, c = r + m_pad columns
+                   (m_pad = m rounded up to RHS_ALIGN), r / b steps of
+                   2 b^3 (the pivot tile) + 2 b b c (Dinv @ [D | Db])
+                   + 2 r b c (the update) — what chip_smoke.py's bounds
+                   charge the kernels with;
+                   card form, dense: 2/3 r^3 + 2 r^2 m (LU and solves);
+                   CPU form: 4 (2/3 n^3 + 2 n^2 m) (complex LU)
+      integrals    8 m n^2 + 2 n^2 + 24 m n  sigma @ S^T / 4 pi and the
+                                             pressure integrals
+
+    The incident wave (O(nbeta n)) is left out.  Returns a dict of the
+    stages and their ``total``."""
+    P = n * n * Q
+    if real_block:
+        wave = _OPS_CHEB + _patch_ops(*cheb_degree)
+    else:
+        wave = _OPS_TABLE
+    fd = _OPS_FD_PAIR + _FD_NODES * _OPS_FD_NODE if finite else 0
+    m = 6 + nbeta
+    if real_block and n > BLOCKED_GJ_MIN_PANELS and (2 * n) % GJ_BLOCK == 0:
+        r, b = 2 * n, GJ_BLOCK
+        c = r + m + (-m % RHS_ALIGN)
+        elim = (r // b) * (2 * b ** 3 + 2 * b * b * c + 2 * r * b * c)
+    elif real_block:
+        r = 2 * n
+        elim = 2 * r ** 3 // 3 + 2 * r * r * m
+    else:
+        elim = 4 * (2 * n ** 3 // 3 + 2 * n * n * m)
+    out = {
+        "assembly": P * (_OPS_ROWS + wave + fd),
+        "system": 8 * n * n,
+        "elimination": elim,
+        "integrals": 8 * m * n * n + 2 * n * n + 24 * m * n,
+    }
+    out["total"] = sum(out.values())
+    return out
 
 
 def max_resolved_omega(panel_size, g=9.81, panels_per_wavelength=7.0):

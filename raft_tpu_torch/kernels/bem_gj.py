@@ -18,8 +18,10 @@ versions, and the staged composition.
   ``L @ R`` and ``X - L @ R``.
 - :func:`gj_stage` — the mirror of ``gj_stage_pallas`` :498: ``nblk``
   elimination steps of ``block`` rows from block row ``kb0``, no pivoting
-  between blocks.  A PyTorch loop over pivot blocks on one ``[A | b]``
-  buffer that calls the three functions above, one of each per step;
+  between blocks; :func:`gj_stage_buffer` runs the same steps on an
+  ``[A | b]`` buffer the caller holds (the streamed BEM solve's stages).
+  A PyTorch loop over pivot blocks on one ``[A | b]`` buffer that calls
+  the three functions above, one of each per step;
   apart from them it only slices, masks with ``torch.where`` and assigns
   slices.
 
@@ -271,20 +273,38 @@ def gj_stage(A, b, kb0, nblk, block=512):
     Two stages ``(0, k)`` then ``(k, n/block - k)`` compose to the whole
     elimination.  The inputs are not modified.
 
-    The stage holds ``[A | b]`` as one ``[n, n + m_pad]`` buffer, ``b``
-    zero-padded to a multiple of ``RHS_ALIGN`` columns (zero columns stay
-    zero), so each step makes one ``mm`` (``Dinv @ [D | Db]``) and one
-    ``mm_sub`` where ``gj_stage_pallas`` makes two of each.  A kernel sums
-    each output element in the same order whatever the width, so on the
-    card the bits are those of the separate products; on the CPU the BLAS
-    may block a wider product otherwise (round-off).  ``A`` and ``b`` come
-    back as views of the buffer."""
+    The stage holds ``[A | b]`` as one ``[n, n + m_pad]`` buffer
+    (:func:`gj_buffer`) and runs :func:`gj_stage_buffer` on it.  ``A`` and
+    ``b`` come back as views of the buffer."""
     n, m = A.shape[0], b.shape[1]
-    if n % block:
-        raise ValueError(f"gj_stage: n = {n} is not a multiple of {block}")
-    pad = torch.zeros((n, -m % RHS_ALIGN), dtype=A.dtype, device=A.device)
-    Ab = torch.cat([A, b, pad], dim=1)                      # [n, n + m_pad]
-    rowidx = torch.arange(n, device=A.device)
+    Ab = gj_stage_buffer(gj_buffer(A, b), n, kb0, nblk, block)
+    return Ab[:, :n], Ab[:, n:n + m]
+
+
+def gj_buffer(A, b):
+    """``[A | b | 0]``: ``b`` zero-padded to a multiple of ``RHS_ALIGN``
+    columns (zero columns stay zero through every step)."""
+    m = b.shape[1]
+    pad = torch.zeros((A.shape[0], -m % RHS_ALIGN), dtype=A.dtype,
+                      device=A.device)
+    return torch.cat([A, b, pad], dim=1)                   # [n, n + m_pad]
+
+
+def gj_stage_buffer(Ab, n, kb0, nblk, block=512):
+    """The steps of :func:`gj_stage` on a buffer ``Ab [n, n + m_pad]`` the
+    caller already holds, so a staged elimination builds ``[A | b]`` once
+    rather than once per stage.  Returns the buffer after the steps (each
+    step's ``mm_sub`` writes a new one; ``Ab`` itself is not modified).
+
+    Each step makes one ``mm`` (``Dinv @ [D | Db]``) and one ``mm_sub``
+    where ``gj_stage_pallas`` makes two of each.  A kernel sums each
+    output element in the same order whatever the width, so on the card
+    the bits are those of the separate products; on the CPU the BLAS may
+    block a wider product otherwise (round-off)."""
+    if n % block or Ab.shape[0] != n:
+        raise ValueError(f"gj_stage: n = {n} is not a multiple of {block} "
+                         f"rows of a {tuple(Ab.shape)} buffer")
+    rowidx = torch.arange(n, device=Ab.device)
     for kb in range(int(kb0), int(kb0) + int(nblk)):
         k0 = kb * block
         Dinv = tile_inv(Ab[k0:k0 + block, k0:k0 + block])
@@ -293,4 +313,4 @@ def gj_stage(A, b, kb0, nblk, block=512):
         C = torch.where(mask, 0.0, Ab[:, k0:k0 + block])    # [n, block]
         Ab = mm_sub(Ab, C, row)
         Ab[k0:k0 + block] = row
-    return Ab[:, :n], Ab[:, n:n + m]
+    return Ab

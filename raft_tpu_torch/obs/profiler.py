@@ -115,6 +115,8 @@ class ProfilerHook:
     shim: one GIL-atomic read when disarmed, a full capture exactly once
     after ``arm``."""
 
+    _GUARDED_BY = {"armed_dir": "_lock", "last": "_lock"}
+
     def __init__(self):
         self._lock = threading.Lock()
         self.armed_dir = None

@@ -1184,3 +1184,45 @@ def run_design_sweep(
             tm["dynamics_first_s"], tm["overlap_saved_s"],
             tm["overlap_chunks"], tm["total_s"])
     return res
+
+
+def apply_volturnus_point(design, ccD=1.0, ocD=1.0, draft=1.0,
+                          spacing=1.0, pontoon=1.0):
+    """Reference-style 5-parameter VolturnUS-S geometry variation: scale
+    factors (1.0 = base design) on center-column diameter, outer-column
+    diameter, draft, column spacing (outer-column radius), and pontoon
+    height, with the dependent updates the reference's sweep applies —
+    pontoon/support endpoints track the column faces, pontoon centerline
+    tracks the keel + half height, and the vessel fairleads track the
+    outer columns' outboard face (reference raft/parametersweep.py:56-100;
+    the scales compose cleanly where the reference's in-loop mutations
+    are order-dependent).  A copy of ``design`` with members 0 (center
+    column, scalar ``d``), 1 (outer columns), 2 (pontoon, ``d = [w, h]``)
+    and 3 (brace) updated; pure dict arithmetic, as raft_tpu's.
+    """
+    d = copy.deepcopy(design)
+    mem = d["platform"]["members"]
+    cc = float(mem[0]["d"]) * ccD
+    oc = float(mem[1]["d"]) * ocD
+    T = float(mem[1]["rA"][2]) * draft
+    R = float(mem[1]["rA"][0]) * spacing
+    h = float(mem[2]["d"][1]) * pontoon
+    mem[0]["d"] = cc
+    mem[0]["rA"] = [0.0, 0.0, T]
+    mem[1]["d"] = oc
+    mem[1]["rA"] = [R, float(mem[1]["rA"][1]), T]
+    mem[1]["rB"] = [R, float(mem[1]["rB"][1]), float(mem[1]["rB"][2])]
+    z_p = T + h / 2.0
+    mem[2]["d"] = [float(mem[2]["d"][0]), h]
+    mem[2]["rA"] = [cc / 2.0, float(mem[2]["rA"][1]), z_p]
+    mem[2]["rB"] = [R - oc / 2.0, float(mem[2]["rB"][1]), z_p]
+    mem[3]["rA"][0] = cc / 2.0
+    mem[3]["rB"][0] = R - oc / 2.0
+    rF = R + oc / 2.0
+    for p in d["mooring"]["points"]:
+        if p.get("type") == "vessel":
+            x, y = float(p["location"][0]), float(p["location"][1])
+            r = max((x * x + y * y) ** 0.5, 1e-12)
+            p["location"][0] = x / r * rF
+            p["location"][1] = y / r * rF
+    return d

@@ -32,10 +32,12 @@ setup(
     packages=["raft_tpu", "raft_tpu.io", "raft_tpu.utils",
               "raft_tpu_torch", "raft_tpu_torch.io", "raft_tpu_torch.utils",
               "raft_tpu_torch.kernels", "raft_tpu_torch.serve",
-              "raft_tpu_torch.grad", "raft_tpu_torch.obs"],
+              "raft_tpu_torch.grad", "raft_tpu_torch.obs",
+              "raft_tpu_torch.analysis", "raft_tpu_torch.analysis.rules"],
     package_data={"raft_tpu": ["native/*.cpp", "native/Makefile"],
                   "raft_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
-                                     "data/*.npz"]},
+                                     "data/*.npz",
+                                     "analysis/allowlists/*.txt"]},
     python_requires=">=3.9",
     # numpy>=2.0: np.trapezoid (raft_tpu/fatigue.py, tests)
     install_requires=["numpy>=2.0", "scipy", "pyyaml", "jax"],

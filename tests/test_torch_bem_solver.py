@@ -171,19 +171,192 @@ def test_blocked_path_parity(monkeypatch, tpu_form_on_cpu):
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(n_devices=2), NotImplementedError),
-    (dict(report_cost=True), NotImplementedError),
     (dict(backend="tpu"), ValueError),
-], ids=["sharded", "report_cost", "unknown-backend"])
+], ids=["sharded", "unknown-backend"])
 def test_solve_bem_refuses_what_is_not_ported(kw, exc):
     with pytest.raises(exc):
         tb.solve_bem(spar_panels(12.0, 12.0), [0.5], device="cpu", **kw)
 
 
-def test_streamed_card_form_is_not_ported(monkeypatch):
-    monkeypatch.setattr(tb, "STREAM_PANEL_LIMIT", 10)
-    with pytest.raises(NotImplementedError, match="streamed"):
-        tb.solve_bem(spar_panels(12.0, 12.0), [0.5], backend="cuda",
-                     device="cpu")
+def test_streamed_path_parity(monkeypatch, tpu_form_on_cpu):
+    """The streamed out-of-core card-form solve, forced on
+    spar_panels(4.0, 3.0) (508 panels padded to 512) by lowering the
+    panel limit to 4 and the band budget to 1e-4 s: two bands of 256 rows
+    and two elimination stages per frequency, as raft_tpu's streamed run
+    of the same mesh plans them; bit for bit the port's direct card-form
+    solve (its threshold lowered so it too eliminates by blocks; its
+    512-row assembly block spans both bands); within raft_tpu's bars of
+    raft_tpu's streamed result."""
+    panels = spar_panels(4.0, 3.0)
+    assert len(panels) == 508
+    assert tb._row_block(512, 4, True) == 512
+    w = [0.5, 0.9]
+    monkeypatch.setattr(tb, "BLOCKED_GJ_MIN_PANELS", 256)
+    direct = tb.solve_bem(panels, w, backend="cuda", device="cpu")
+    assert "streamed" not in direct
+    monkeypatch.setattr(tb, "STREAM_PANEL_LIMIT", 4)
+    monkeypatch.setattr(tb, "STREAM_BAND_BUDGET_S", 1e-4)
+    out = tb.solve_bem(panels, w, backend="cuda", device="cpu",
+                       report_cost=True)
+    monkeypatch.setattr(jb, "TPU_PANEL_LIMIT", 4)
+    monkeypatch.setattr(jb, "STREAM_BAND_BUDGET_S", 1e-4)
+    ref = jb.solve_bem(panels, w, backend="tpu", n_devices=1)
+    assert out["streamed"] is True and ref["streamed"] is True
+    assert (out["stream_bands"], out["stream_solve_dispatches"]) == (
+        ref["stream_bands"], ref["stream_solve_dispatches"]) == (2, 2)
+    assert "flops" not in out       # as raft_tpu, no cost when streamed
+    for k in ("A", "B", "X"):
+        assert np.array_equal(out[k], direct[k]), k
+    _assert_within_bars(out, ref)
+
+
+def test_stream_plan_is_the_card_s_own():
+    """At the real limit the plan uses this card's assembly time and
+    elimination rate; at a budget of 1e-4 s it is raft_tpu's plan (one
+    band per 256-row unit, one stage per block step)."""
+    assert tb._stream_plan(10496) == (41, [21, 20])
+    assert tb._stream_plan(10752) == (14, [21, 21])
+    for n in (512, 2560, 10496):
+        D, steps = tb._stream_plan(n, 1e-4)
+        assert D == n // 256 and steps == [1] * (2 * n // 512)
+
+
+def test_stage_buffer_composes_to_gj_stage():
+    """Stages of gj_stage_buffer on one [A | b] buffer compose to the
+    whole elimination of gj_stage, bit for bit, and leave their input
+    buffer as it was."""
+    from raft_tpu_torch.kernels import bem_gj
+
+    g = torch.Generator().manual_seed(0)
+    n, block = 1024, 512
+    A = torch.randn(n, n, generator=g) + n * torch.eye(n)
+    b = torch.randn(n, 7, generator=g)
+    _, x = bem_gj.gj_stage(A, b, 0, n // block, block=block)
+    Ab = bem_gj.gj_buffer(A, b)
+    before = Ab.clone()
+    half = bem_gj.gj_stage_buffer(Ab, n, 0, 1, block)
+    assert torch.equal(Ab, before)
+    done = bem_gj.gj_stage_buffer(half, n, 1, 1, block)
+    assert torch.equal(done[:, n:n + 7], x)
+
+
+class _PairOps:
+    """A dispatch mode counting operations: one per element of every
+    elementwise op whose output has ``E`` elements (any size with
+    ``any_size``; a complex add 2, a complex-by-real product 2, a complex
+    product 6), the adds of every sum, 2 M K N for a product."""
+
+    ELEMENTWISE = {
+        "mul", "add", "div", "where", "sub", "gt", "ge", "lt", "le", "eq",
+        "reciprocal", "sqrt", "clamp", "pow", "bitwise_and", "bitwise_or",
+        "bitwise_not", "abs", "cos", "sin", "log", "exp", "sign", "rsub",
+        "neg", "atan2", "maximum", "minimum"}
+
+    def __new__(cls, E, any_size=False):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Mode(TorchDispatchMode):
+            ops = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.overloadpacket.__name__
+                if name == "sum":
+                    w = 2 if out.is_complex() else 1
+                    self.ops += w * (args[0].numel() - out.numel())
+                elif name == "mm":
+                    self.ops += 2 * args[0].numel() * args[1].shape[1]
+                elif name in cls.ELEMENTWISE and (
+                        any_size or out.numel() == E):
+                    w = 1
+                    if out.is_complex():
+                        both = all(isinstance(t, torch.Tensor)
+                                   and t.is_complex() for t in args[:2])
+                        w = 6 if name in ("mul", "div") and both else 2
+                    self.ops += w * out.numel()
+                return out
+
+        return Mode()
+
+
+def test_solve_cost_pair_constants_are_the_code_s(monkeypatch):
+    """solve_cost's per-pair constants recounted from the code: the
+    card form's wave rows without the patch, the patch of degrees
+    (48, 40), the finite-depth correction, the CPU form's wave rows."""
+    from raft_tpu_torch import greens
+
+    pa = tb.pad_panel_arrays(tb.panel_arrays(spar_panels(6.0, 5.0)))
+    rb, N, Q = 32, pa.n, pa.qpts.shape[1]
+    E = rb * N * Q
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, np.float32))
+
+    x, nrm, y, w = f(pa.cen[:rb]), f(pa.nrm[:rb]), f(pa.qpts), f(pa.qwts)
+    nu, depth, kmax = f(0.8 ** 2 / 9.81), f(200.0), f(15.0 / 80.0)
+    k0 = greens.dispersion_k0(nu, depth)
+    cheb = {k: f(v) for k, v in greens.load_cheb_tables().items()}
+    tables = tuple(f(t) for t in greens.load_tables())
+
+    def count(fn, any_size=False):
+        mode = _PairOps(E, any_size)
+        with mode:
+            fn()
+        return mode.ops / E
+
+    xa, xb = torch.rand(E, generator=torch.Generator().manual_seed(1)), \
+        torch.rand(E, generator=torch.Generator().manual_seed(2))
+    assert count(lambda: greens._cheb_patch("D", xa, xb, cheb), True) == \
+        tb._patch_ops(*tb._CHEB_D_PATCH)
+    assert count(lambda: tb._wave_rows(nu, nu, x, nrm, y, w, tables, depth,
+                                       kmax, False)) == \
+        tb._OPS_ROWS + tb._OPS_TABLE
+    fd = count(lambda: greens.finite_depth_correction(
+        nu, k0, depth, torch.zeros(rb, N, Q), x[:, None, None, 2],
+        y[None, :, :, 2], kmax))
+    assert fd == tb._OPS_FD_PAIR + tb._FD_NODES * tb._OPS_FD_NODE
+    # the patches out (counted above): what is left of the card form
+    monkeypatch.setattr(greens, "_cheb_patch", lambda name, xa, xb, C: (
+        torch.zeros(xa.shape), torch.zeros(xa.shape)))
+    assert count(lambda: tb._wave_rows(nu, nu, x, nrm, y, w, cheb, depth,
+                                       kmax, False)) == \
+        tb._OPS_ROWS + tb._OPS_CHEB
+
+
+# the port's count of one frequency over raft_tpu's XLA count on the same
+# mesh and form (spar_panels(4.0, 3.0), 512 padded panels, the card form's
+# dense solve), as measured here.  XLA's cost analysis counts the body of
+# a while loop once: raft_tpu's figure holds one 32-row block of the 16 in
+# its assembly's lax.map (each pair evaluating all six Chebyshev patches,
+# its masked form), where the port counts all 16 blocks at one patch per
+# pair; it also leaves out the dense LU's custom call.  Outside [0.5, 2]:
+# ROADMAP.md queue 3 records it.
+XLA_COST_RATIO = 3.69
+
+
+def test_report_cost(tpu_form_on_cpu):
+    """report_cost=True adds flops = solve_cost x frequencies; its
+    elimination part equals the closed form of the kernels' work, and the
+    total stands in the measured ratio to raft_tpu's XLA count."""
+    panels = spar_panels(4.0, 3.0)
+    w = [0.6, 1.1]
+    out = tb.solve_bem(panels, w, backend="cuda", device="cpu",
+                       report_cost=True)
+    n = out["npanels_solved"]
+    cost = tb.solve_cost(n, 1)
+    assert out["flops"] == 2 * cost["total"]
+    assert cost["total"] == sum(v for k, v in cost.items() if k != "total")
+    r = 2 * n
+    assert cost["elimination"] == 2 * r ** 3 // 3 + 2 * r * r * 7
+    blocked = tb.solve_cost(2560, 1)["elimination"]
+    b, c = 512, 5120 + 8
+    assert blocked == 10 * (2 * b ** 3 + 2 * b * b * c + 2 * 5120 * b * c)
+    assert tb.solve_cost(n, 1, real_block=False)["elimination"] == \
+        4 * (2 * n ** 3 // 3 + 2 * n * n * 7)
+    ref = jb.solve_bem(panels, w[:1], backend="tpu", n_devices=1,
+                       report_cost=True)
+    ratio = cost["total"] / ref["flops"]
+    assert abs(ratio / XLA_COST_RATIO - 1.0) < 0.05, ratio
 
 
 def test_card_form_without_a_card_raises(monkeypatch):

@@ -192,3 +192,45 @@ def test_device_argument_takes_cuda_or_cpu(device, spar):
     with pytest.raises(SystemExit) as e:
         main([spar, "--device", device])
     assert e.value.code == 2
+
+
+# a stdin ``serve`` process whose SIGTERM the kernel can only deliver to a
+# helper thread, as the CUDA runtime's threads take it on the card: the
+# helper starts first (threads inherit the mask of the thread that makes
+# them), then the main thread blocks SIGTERM, then the serve loop runs
+_SIGNAL_ON_ANOTHER_THREAD = """
+import signal, threading, time
+threading.Thread(target=time.sleep, args=(3600,), daemon=True).start()
+signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGTERM})
+from raft_tpu_torch.__main__ import _serve_main
+_serve_main(["--device", "cpu"])
+"""
+
+
+def test_stdin_serve_drains_on_sigterm_taken_by_another_thread(tmp_path):
+    """With stdin held open and nothing written, SIGTERM delivered to a
+    thread other than the main one still drains the loop: the shutdown
+    line and exit 0 within 10 s."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _SIGNAL_ON_ANOTHER_THREAD],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2"))
+    try:
+        ready = json.loads(proc.stdout.readline() or "{}")
+        assert ready.get("event") == "ready", proc.stderr.read()[-2000:] \
+            if proc.poll() is not None else ready
+        proc.send_signal(signal.SIGTERM)
+        # wait with stdin still open: communicate() would close it, and
+        # the EOF alone ends the loop
+        rc = proc.wait(timeout=10)
+        out, err = proc.stdout.read(), proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        proc.stdin.close()
+    assert rc == 0, err[-2000:]
+    last = json.loads(out.strip().splitlines()[-1])
+    assert last["event"] == "shutdown"
+    assert last["signal"] == signal.SIGTERM

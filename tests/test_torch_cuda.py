@@ -2,7 +2,7 @@
 fused fixed-point block (one thread-block cluster per lane), and the BEM
 solve's pivot-tile inverse and matrix products — with the design
 gradients, the batched design prep, the OpenMDAO component, the checked
-pipeline and the CLI on the card (marked ``cuda``;
+pipeline, the CLI and the streamed BEM solve on the card (marked ``cuda``;
 each test skips with its reason where there is no card).  This file
 imports neither jax nor raft_tpu, so it runs on a machine with only the
 port's dependencies:
@@ -390,6 +390,34 @@ def test_solve_bem_card_form_on_the_card(cuda, monkeypatch):
                        device="cpu")
     for k, bar in (("A", 2e-4), ("B", 1e-3), ("X", 2e-4)):
         assert np.abs(out[k] - ref[k]).max() <= bar * np.abs(ref[k]).max()
+
+
+def test_streamed_solve_equals_direct_at_the_bem_cell(cuda, monkeypatch):
+    """The BEM cell's mesh (the flagship with every member potential-flow
+    at its default panel sizes: 2470 panels with lids, padded to 2560, at
+    200 m depth), one frequency: the streamed path, forced by lowering
+    the panel limit and shrinking the band budget (5 bands of 512 rows,
+    2 elimination stages), equals the direct card-form solve bit for bit,
+    each with 10 launches of each kernel."""
+    design = raft_tpu_torch.designs.flagship(0.05, 0.5, 1)
+    design["platform"]["potModMaster"] = 2
+    model = raft_tpu_torch.Model(design, device="cpu")
+    panels = tm.mesh_platform([m for m in model.members if m.potMod],
+                              dz_max=3.0, da_max=2.0)
+    kw = dict(depth=model.depth, lid_panels=tm.lid_panels_from_mesh(panels))
+    out = {}
+    for name, limit in (("direct", tb.STREAM_PANEL_LIMIT), ("streamed", 1000)):
+        monkeypatch.setattr(tb, "STREAM_PANEL_LIMIT", limit)
+        monkeypatch.setattr(tb, "STREAM_BAND_BUDGET_S", 0.5)
+        bg.reset_launches()
+        out[name] = tb.solve_bem(panels, [0.7], **kw)
+        assert bg.launches == {"tile_inv": 10, "mm": 10, "mm_sub": 10}
+    assert out["direct"]["npanels_solved"] == 2560
+    s = out["streamed"]
+    assert (s["streamed"], s["stream_bands"],
+            s["stream_solve_dispatches"]) == (True, 5, 2)
+    for k in ("A", "B", "X"):
+        assert np.array_equal(s[k], out["direct"][k]), k
 
 
 def test_aero_design_on_the_card_matches_the_cpu(cuda):

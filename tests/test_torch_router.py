@@ -25,6 +25,7 @@ raises."""
 
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -126,6 +127,24 @@ def test_solve_sweep_grad_equal_the_engine(fleet):
     assert all(g and "queue_depth" in g for g in gauges.values())
 
 
+def test_replica_slow_retries_next_replica_bit_identically(fleet):
+    """``replica_slow`` stalls the forward past the wire client's
+    patience: the router gives up on that replica and its ring successor
+    answers, with the engine's bits."""
+    router, eng, _ = fleet
+    d = _design(20)
+    slows = router.stats["chaos_replica_slows"]
+    router.set_chaos("replica_slow=0.3*1:3")
+    try:
+        res = router.evaluate(d, timeout=120)
+    finally:
+        router.set_chaos(None)
+    assert res.status == "ok", res.error
+    assert router.stats["chaos_replica_slows"] == slows + 1
+    assert res.replica != router.route(d)
+    assert np.array_equal(res.Xi, eng.evaluate(d, timeout=120).Xi)
+
+
 def test_replica_kill_retries_on_the_other_replica(fleet):
     router, eng, _ = fleet
     d = _design(10)
@@ -191,6 +210,13 @@ def test_retire_then_a_hit_with_zero_alive_replicas(fleet):
     d = _design(31)
     res = router.evaluate(d, timeout=120)
     assert res.status == "ok"
+    # the replica stores its answer after the handle resolves: wait for
+    # the entry before a view with no replica probes for it
+    key = trc.result_key(d, None, router._precision, flags=router.flags)
+    store = trc.ResultCache(cache, flags=router.flags)
+    deadline = time.monotonic() + 60
+    while store.get_result(key)[0] is None and time.monotonic() < deadline:
+        time.sleep(0.05)
     # a fresh attach-mode router on the just-freed port: the shared
     # cache still answers, with zero forward hop
     with Router(endpoints=[("127.0.0.1", port)], cache_dir=cache,

@@ -33,6 +33,7 @@ from raft_tpu_torch.serve import (
     choose_bucket,
     pack_slots,
 )
+from raft_tpu_torch.serve import engine as serve_engine
 from raft_tpu_torch.utils.placement import host_threads
 
 NW = (0.05, 0.5)
@@ -215,6 +216,19 @@ def _direct(design, bucket, **kw):
     m.analyze_unloaded()
     m.analyze_cases(**kw)
     return m
+
+
+def test_batched_dispatch_count_below_request_count(port_served):
+    """The engine's batching: the two spar variants share one bucket and
+    one dispatch (4 real lanes of an 8-slot bucket), the semi its own."""
+    _, results, snap = port_served
+    assert all(isinstance(r, serve_engine.RequestResult) for r in results)
+    assert all(r.status == "ok" for r in results)
+    assert snap["requests"] == 3
+    assert snap["dispatches"] < snap["requests"]
+    assert results[0].bucket == results[1].bucket != results[2].bucket
+    assert results[0].batch_requests == 2
+    assert results[0].batch_occupancy == pytest.approx(0.5)
 
 
 def test_solo_coalesced_direct_bit_identical(port_served, tmp_path):

@@ -256,3 +256,46 @@ def test_deferred_sweep_paths_raise():
                                         **dict(dict(device="cpu"), **kw))
     with pytest.raises(NotImplementedError, match="step 8"):
         tsf.run_design_sweep([d], device=["cpu", "cpu"], verbose=False)
+
+
+def _volturnus_shaped():
+    """A design dict with VolturnUS-S's layout (center column, outer
+    columns at 51.75 m, a 12.5 x 7 m pontoon, a brace, three fairleads
+    on the outer columns' outboard face, three anchors): what
+    apply_volturnus_point edits, without the rest of the design."""
+    ang = np.deg2rad([180.0, 60.0, -60.0])
+    members = [
+        {"name": "center_column", "d": 10.0, "rA": [0.0, 0.0, -20.0],
+         "rB": [0.0, 0.0, 15.0]},
+        {"name": "outer_column", "d": 12.5, "rA": [51.75, 0.0, -20.0],
+         "rB": [51.75, 0.0, 15.0], "heading": [60, 180, 300]},
+        {"name": "pontoon", "d": [12.5, 7.0], "rA": [5.0, 0.0, -16.5],
+         "rB": [45.5, 0.0, -16.5], "heading": [60, 180, 300]},
+        {"name": "strut", "d": 0.91, "rA": [5.0, 0.0, 14.55],
+         "rB": [45.5, 0.0, 14.55], "heading": [60, 180, 300]},
+    ]
+    points = [{"name": f"fairlead{i}", "type": "vessel",
+               "location": [58.0 * np.cos(a), 58.0 * np.sin(a), -14.0]}
+              for i, a in enumerate(ang)]
+    points += [{"name": f"anchor{i}", "type": "fixed",
+                "location": [837.6 * np.cos(a), 837.6 * np.sin(a), -200.0]}
+               for i, a in enumerate(ang)]
+    return {"platform": {"members": members},
+            "mooring": {"points": points, "lines": []}}
+
+
+@pytest.mark.parametrize("scales", [
+    dict(ccD=1.1, ocD=0.9, draft=1.05, spacing=0.95, pontoon=1.2),
+    dict(ccD=0.85, draft=0.9, pontoon=0.8),
+    dict(ocD=1.15, spacing=1.1),
+])
+def test_apply_volturnus_point_matches_raft_tpu(scales):
+    """The port's apply_volturnus_point equals raft_tpu's exactly (==
+    on the whole dict, floats included) and leaves its input as it was."""
+    base = _volturnus_shaped()
+    before = copy.deepcopy(base)
+    out = tsf.apply_volturnus_point(base, **scales)
+    ref = jsf.apply_volturnus_point(copy.deepcopy(base), **scales)
+    assert out == ref
+    assert base == before
+    assert out != base

@@ -151,9 +151,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
     where matplotlib is not installed, the analysis printed and the
     command failing on it), then ``__main__.main`` in this process with
     its gj_solve launches counted (the same natural frequencies), and
-    ``main(["serve", "--http", "0", "--replicas", "2", "--device",
-    "cuda:0,cuda:1"])`` raising, naming ROADMAP step 8 item 2 (every
-    replica runs on one card; ``serve --http`` itself is phase 31);
+    ``main(["serve", "--http", "0", "--device", "cuda:0,cuda:0"])``
+    exiting 2 (a device list places ``--replicas``, phase 42; ``serve
+    --http`` itself is phase 31);
 24. ``validate.checked_pipeline`` on the flagship on the card: Xi and
     the report bit-identical to the unchecked pipeline and to
     ``analyze_cases``, its launches counted, its time beside the
@@ -228,7 +228,28 @@ Phases (each prints a line; any failure raises and exits non-zero):
     one request answered with stdin held open, then SIGTERM: the
     shutdown line and exit 0 within 15 s;
 38. ``python -m raft_tpu_torch.analysis`` (the port's lints) on this
-    machine, which has no jax: exit 0.
+    machine, which has no jax: exit 0 (it runs after 44);
+39. the device list of 40-44: ``cuda:0 ... cuda:n-1`` when the host has
+    more than one card, else ``["cuda:0"] * 2`` (two streams of the one
+    card), printed;
+40. the sharded BEM solve of phase 13's mesh: its first frequencies over
+    the list (``freq``) bit for bit phase 13's, then one frequency x
+    two headings over two entries (``freqbeta``) against the
+    single-card solve of those headings (raft_tpu's 1e-5 bar); the BEM
+    kernels' launches per shard;
+41. the headline sweep of phase 17 over the list (each draft group's
+    designs split), waterfall and fused, bit for bit phase 17's
+    single-card runs, ms per design beside them;
+42. an engine with the lane mesh over the list serving phase 25's ten
+    requests, bit for bit each served alone on a one-entry mesh; a
+    2-replica router over the list (replica i on entry i mod n) with the
+    in-process engine's bits;
+43. the rotor's second pass on 512 lanes of phase 17's wind cases on 4
+    host workers against 1, bit for bit, beside the one-program batch;
+44. two gloo ranks (``sweep.initialize_distributed``) spawned on the
+    list's first two entries running ``run_sweep`` of phase 18's grid:
+    each rank the single-process bits, rank 0 the only checkpoint
+    writer.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  In the kernel table ``ms`` is the
@@ -243,7 +264,8 @@ compute() and compute_partials, ``launches_cli`` and
 ``launches_router`` and ``launches_autoscale`` the launches the served
 processes of phases 31-33 report; ``launches_omdao_bem`` of the BEM
 kernels is phase 22's run_native_BEM compute(), ``launches_streamed``
-phase 36's full-width streamed solve.
+phase 36's full-width streamed solve, ``launches_mesh_*`` phases 40-44
+(``launches_mesh_gloo`` the two ranks' own counts, summed).
 Without CUDA, or without the raft_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -986,6 +1008,9 @@ SWEEP_RUNG = 1024
 # raft_tpu's CPU figure for its 256-design sweep of VolturnUS-S (PERF.md),
 # printed for orientation only: another design on another machine
 RAFT_TPU_CPU_MS_PER_DESIGN_VOLTURNUS = 263.97
+# the headline sweep's single-card runs, {(mode, overlap): run}, which the
+# mesh sweep phase holds its device list against
+HEADLINE_RUNS = {}
 
 
 class _Capture:
@@ -1192,6 +1217,7 @@ def headline_sweep_phase(rt, card):
           f"raft_tpu JAX-on-CPU VolturnUS-S figure for orientation only: "
           f"{RAFT_TPU_CPU_MS_PER_DESIGN_VOLTURNUS} ms/design", flush=True)
     guided_rotor_check(rt, base, card)
+    HEADLINE_RUNS.update(runs)
     return {mode: run["launches"] for (mode, ov_), run in runs.items()
             if ov_ == "auto"}
 
@@ -2359,18 +2385,20 @@ def cli_phase(rt, gk):
     if fn_line(log.getvalue()) != fn_line(out.stdout):
         raise AssertionError("the CLI's natural frequencies differ in and "
                              "out of process")
+    # a device list places --replicas (phase 42 runs them); one engine's
+    # lane mesh is --serve-devices, so a list without --replicas exits 2
     try:
-        cli.main(["serve", "--http", "0", "--replicas", "2", "--device",
-                  "cuda:0,cuda:1"])
-    except NotImplementedError as e:
-        if "queue 1 step 8 item 2" not in str(e):
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli.main(["serve", "--http", "0", "--device", "cuda:0,cuda:0"])
+    except SystemExit as e:
+        if e.code != 2:
             raise
     else:
-        raise AssertionError("replicas across two cards did not raise")
+        raise AssertionError("a device list without --replicas ran")
     print(f"phase cli: subprocess exit={out.returncode} wall_s={cli_s:.2f} "
           f"{plotted} | in process main_s={main_s:.3f} gj_launches="
-          f"{launches} '{fn_line(out.stdout)}' | serve --replicas across "
-          f"two cards raises naming step 8 item 2", flush=True)
+          f"{launches} '{fn_line(out.stdout)}' | serve --device with a "
+          f"list and no --replicas exits 2", flush=True)
     return dict(gj_solve=launches)
 
 
@@ -3384,6 +3412,354 @@ def lint_phase():
           f"{doc['n_allowlisted']} allowlisted", flush=True)
 
 
+# ------------------------------------------ the multi-device paths (39-44)
+
+# of phase 13's solved frequencies, the ones the sharded BEM solve takes
+MESH_BEM_FREQS = 2
+# phase 13's panel sizes and padded panel count
+MESH_BEM_PANEL = (3.0, 2.0)
+MESH_BEM_SOLVED = 2560
+# the freqbeta check: one frequency x two headings over two entries
+MESH_BEM_HEADINGS = (0.0, 30.0)
+# the freqbeta gap bar: raft_tpu's sharded-vs-single bar
+# (tests/test_bem_shard.py)
+MESH_FREQBETA_BAR = 1e-5
+MESH_ROTOR_WORKERS = 4
+MESH_ROTOR_LANES = 512
+GLOO_AXES = {"d_col": [9.0, 10.0, 11.0], "draft_scale": [1.0, 1.1]}
+
+
+def mesh_devices():
+    """Phase 39: the device list of the multi-device phases: every card
+    when the host has more than one, else two streams on the one card."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        devs, what = [f"cuda:{i}" for i in range(n)], f"{n} cards"
+    else:
+        devs, what = ["cuda:0"] * 2, "one card, two streams"
+    print(f"phase mesh devices: {devs} ({what})", flush=True)
+    return devs
+
+
+def _bits_gap(a, b):
+    """0.0 when ``a`` and ``b`` are equal bit for bit, else their largest
+    gap relative to the largest |b|."""
+    a, b = np.asarray(a), np.asarray(b)
+    if np.array_equal(a, b):
+        return 0.0
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def mesh_bem_phase(rt, bg, devs, model):
+    """Phase 40: the sharded BEM solve of the flagship's potential-flow
+    mesh (2560 padded panels) on the card: phase 13's first frequencies
+    over the list (``freq``), held bit for bit against phase 13's
+    coefficients, and one frequency x two headings (``freqbeta``, over
+    the list's first two entries) against the single-card solve of the
+    same headings; the BEM kernels' launches counted per shard."""
+    from raft_tpu_torch import bem_solver as tb
+    from raft_tpu_torch import mesh
+
+    coeffs = model.bem_coeffs
+    panels = mesh.mesh_platform([m for m in model.members if m.potMod],
+                                dz_max=MESH_BEM_PANEL[0],
+                                da_max=MESH_BEM_PANEL[1])
+    kw = dict(rho=model.rho_water, g=model.g, depth=model.depth,
+              lid_panels=mesh.lid_panels_from_mesh(panels), backend="cuda")
+    n = max(MESH_BEM_FREQS, len(devs))
+    w = coeffs.w[:n]
+    bg.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tb.solve_bem(panels, w, betas=np.deg2rad(coeffs.headings),
+                       devices=devs, **kw)
+    freq_s = time.perf_counter() - t0
+    launches = dict(bg.launches)
+    if out["sharded"] != "freq" \
+            or out["npanels_solved"] != MESH_BEM_SOLVED:
+        raise AssertionError(f"sharded BEM took {out.get('sharded')} on "
+                             f"{out['npanels_solved']} panels")
+    blocks = 2 * out["npanels_solved"] // 512
+    per_shard = [-(-n // len(devs))] * len(devs)
+    for d, counts in enumerate(out["shard_launches"]):
+        if set(counts.values()) != {blocks * per_shard[d]}:
+            raise AssertionError(f"shard {d} BEM launches {counts}")
+    for k in ("A", "B", "X"):
+        gap = _bits_gap(out[k], getattr(coeffs, k)[:n])
+        if gap:
+            raise AssertionError(f"sharded BEM {k} differs from the "
+                                 f"single-card solve: {gap:.3e}")
+    fb_devs = devs[:2]
+    betas = np.deg2rad(MESH_BEM_HEADINGS)
+    t0 = time.perf_counter()
+    one = tb.solve_bem(panels, w[:1], betas=betas, device=CARD, **kw)
+    one_s = time.perf_counter() - t0
+    bg.reset_launches()
+    t0 = time.perf_counter()
+    fb = tb.solve_bem(panels, w[:1], betas=betas, devices=fb_devs, **kw)
+    fb_s = time.perf_counter() - t0
+    for k, v in bg.launches.items():
+        launches[k] += v
+    if fb["sharded"] != "freqbeta":
+        raise AssertionError(f"expected freqbeta, got {fb.get('sharded')}")
+    gaps = {k: _bits_gap(fb[k], one[k]) for k in ("A", "B", "X")}
+    if max(gaps.values()) > MESH_FREQBETA_BAR:
+        raise AssertionError(f"freqbeta vs single-card {gaps} > "
+                             f"{MESH_FREQBETA_BAR:g}")
+    print(f"phase mesh bem: {CARD} panels={out['npanels']} solved_as="
+          f"{out['npanels_solved']} freq: "
+          f"frequencies={n} over {len(devs)} entries bit_identical_to_phase"
+          f"_13=True shard_launches={out['shard_launches']} s={freq_s:.3f} "
+          f"| freqbeta: 1 frequency x {len(betas)} headings over "
+          f"{len(fb_devs)} entries gap_vs_single_card A={gaps['A']:.3e} "
+          f"B={gaps['B']:.3e} X={gaps['X']:.3e} (bar "
+          f"{MESH_FREQBETA_BAR:g}) shard_launches={fb['shard_launches']} "
+          f"s={fb_s:.3f} single_card_s={one_s:.3f}", flush=True)
+    return launches
+
+
+def mesh_sweep_phase(rt, gk, fk, devs, card):
+    """Phase 41: the 256-design headline sweep over the list (each draft
+    group's designs split over it) in the waterfall and fused modes, bit
+    for bit phase 17's single-card sweep."""
+    import raft_tpu_torch.sweep_fused as sf
+
+    sdevs = devs if DRAFT_GROUP % len(devs) == 0 else devs[:2]
+    base = aero_design(rt)
+    out = {}
+    for mode in ("waterfall", "fused"):
+        ref = HEADLINE_RUNS[(mode, "auto")]
+        gk.launches = fk.launches = 0
+        t0 = time.perf_counter()
+        res = sf.run_draft_ballast_sweep(
+            base, DRAFTS, BALLASTS, draft_group=DRAFT_GROUP, return_xi=True,
+            verbose=False, fixed_point=mode, device=sdevs)
+        total = time.perf_counter() - t0
+        out[mode] = dict(gj_solve=gk.launches, fused_block=fk.launches)
+        for key in ("Xi", "std", "converged", "iters", "nonfinite",
+                    "recovery_tier", "retried"):
+            gap = _bits_gap(res[key], ref["res"][key])
+            if gap or not np.array_equal(res[key], ref["res"][key]):
+                raise AssertionError(f"mesh sweep {mode} {key} differs "
+                                     f"from the single card: {gap:.3e}")
+        st = res["dispatch_stats"]
+        nd = len(DRAFTS) * len(BALLASTS)
+        print(f"phase mesh sweep {mode}: {card} designs={nd} over "
+              f"{len(sdevs)} entries bit_identical_to_single_card=True "
+              f"total_s={total:.3f} ms_per_design={1e3 * total / nd:.2f} "
+              f"(single card {1e3 * ref['total'] / nd:.2f}) launches="
+              f"{out[mode]} rungs={sorted(set(st['rungs']))}", flush=True)
+    return out
+
+
+def mesh_serve_phase(rt, gk, devs, tmp):
+    """Phase 42: an engine with the lane mesh over the list serving the
+    ten requests from four clients, bit for bit each request served
+    alone on a one-entry mesh; then a two-replica router over the list
+    (replica i on entry i mod n)."""
+    import os
+
+    designs = serve_requests(rt)
+    with _engine(rt, tmp, serve_devices=devs) as eng:
+        eng.evaluate(designs[0], timeout=600)
+        gk.launches = 0
+        t0 = time.perf_counter()
+        res = [h.result(600) for h in _submit_from_clients(eng, designs)]
+        wall = time.perf_counter() - t0
+        l_serve = gk.launches
+        snap = eng.snapshot()
+    if not all(r.ok and r.backend == torch.device(CARD).type for r in res):
+        raise AssertionError([(r.status, r.error) for r in res])
+    if snap["mesh_width"] != len(devs) or snap["flags"]["n_devices"] != \
+            len(devs):
+        raise AssertionError(f"mesh width {snap['mesh_width']}")
+    with _engine(rt, tmp, serve_devices=devs[:1], window_ms=0.5) as eng:
+        solo = [eng.evaluate(d, timeout=600) for d in designs]
+    for r, s in zip(res, solo):
+        if not torch.equal(_xi(r), _xi(s)):
+            raise AssertionError(f"mesh served != one-entry mesh solo "
+                                 f"(rid {r.rid})")
+    t0 = time.perf_counter()
+    router = rt.serve.Router(n_replicas=2, device=",".join(devs[:2]),
+                             warmup=False,
+                             cache_dir=os.path.join(tmp, "mesh_fleet"))
+    spawn_s = time.perf_counter() - t0
+    try:
+        with _engine(rt, tmp) as ref_eng:
+            reqs = [_net(rt, r) for r in (1010.0, 1020.0)]
+            for d in reqs:
+                _same_result(router.evaluate(d, timeout=900),
+                             ref_eng.evaluate(d, timeout=900),
+                             "mesh router solve")
+        placed = sorted(doc["device"] for doc in
+                        router.replica_gauges().values())
+        l_router = _launches(router.replica_gauges().values())["gj_solve"]
+    finally:
+        router.shutdown()
+    if placed != sorted(devs[:2]):
+        raise AssertionError(f"replicas placed on {placed}, not {devs[:2]}")
+    print(f"phase mesh serve: requests={len(designs)} serve_devices={devs} "
+          f"mesh_width={snap['mesh_width']} lane_block={snap['lane_block']}"
+          f" dispatches={snap['dispatches'] - 1} gj_launches={l_serve} "
+          f"wall_s={wall:.3f} coalesced == one-entry mesh alone: "
+          f"torch.equal | router replicas on {placed} spawn_s="
+          f"{spawn_s:.1f} gj_launches={l_router} bits == in-process "
+          f"engine", flush=True)
+    return dict(serve=l_serve, router=l_router)
+
+
+def mesh_rotor_phase(rt, card):
+    """Phase 43: the rotor's second pass on 512 lanes of the headline's
+    six wind cases on 4 host workers against 1, bit for bit,
+    and the one-program batch's time beside them, each on one intra-op
+    thread as the sweeps run it."""
+    from raft_tpu_torch.io.schema import cases_as_dicts
+    from raft_tpu_torch.utils.placement import host_threads
+
+    base = aero_design(rt)
+    m = rt.Model(base, device=CARD)
+    cases = cases_as_dicts(base)
+    wind = m._case_arrays(cases)[4]
+    U = wind[wind > 0.0]
+    n = MESH_ROTOR_LANES
+    rng = np.random.default_rng(23)
+    lanes = (np.resize(U, n), rng.uniform(-0.02, 0.08, n))
+    out, secs = {}, {}
+    for k in (None, 1, MESH_ROTOR_WORKERS):
+        t0 = time.perf_counter()
+        with host_threads():     # as the sweeps call it
+            out[k] = m.rotor.run_bem_batch(*lanes, n_devices=k)
+        secs[k] = time.perf_counter() - t0
+        if k == MESH_ROTOR_WORKERS:
+            info = m.rotor.last_batch_info
+    for a, b in zip(out[MESH_ROTOR_WORKERS], out[1]):
+        if not np.array_equal(a, b):
+            raise AssertionError("rotor host workers differ from one")
+    gap = _bits_gap(out[None][0], out[1][0])
+    print(f"phase mesh rotor: {card} lanes={len(lanes[0])} workers="
+          f"{info['n_devices']} lanes_padded={info['lanes_padded']} "
+          f"bit_identical_to_1_worker=True s={secs[MESH_ROTOR_WORKERS]:.3f}"
+          f" 1_worker_s={secs[1]:.3f} one_program_s={secs[None]:.3f} "
+          f"one_program_vs_blocks_gap={gap:.3e}", flush=True)
+
+
+_GLOO_RANK = """
+import json, sys
+import numpy as np
+import torch
+from raft_tpu_torch import sweep as ts
+from raft_tpu_torch.designs import demo_semi
+from raft_tpu_torch.kernels import gj_solve as gk
+
+rank, device, init, out_dir, out = sys.argv[1:6]
+writes = []
+_savez = np.savez
+
+
+def savez(path, **kw):
+    writes.append(str(path))
+    return _savez(path, **kw)
+
+
+ts.np.savez = savez
+
+
+def point(design, pt):
+    for mem in design["platform"]["members"]:
+        if mem["name"] == "outer":
+            mem["d"] = [pt["d_col"]] * len(np.atleast_1d(mem["d"]))
+        mem["rA"][2] *= pt["draft_scale"]
+        if mem["rB"][2] < 0:
+            mem["rB"][2] *= pt["draft_scale"]
+    return design
+
+
+r, world = ts.initialize_distributed(init, 2, int(rank), timeout_s=300)
+axes = json.loads(sys.argv[6])
+gk.launches = 0
+res = ts.run_sweep(demo_semi(n_cases=2), ts.grid_points(axes), point,
+                   device=device, chunk=1, overlap=False, out_dir=out_dir,
+                   verbose=False)
+launches = gk.launches
+_savez(out, Xi=res["Xi"], converged=res["converged"], iters=res["iters"])
+torch.distributed.destroy_process_group()
+print(json.dumps({"rank": r, "world": world, "writes": len(writes),
+                  "gj_solve": launches}))
+"""
+
+
+def mesh_gloo_phase(rt, gk, devs, card, tmp):
+    """Phase 44: two gloo ranks (``initialize_distributed``) spawned on
+    the card(s), running ``run_sweep`` of the demo semi's 6-point grid in
+    one-design chunks: each rank's results equal the single-process run
+    bit for bit, and rank 0 alone writes the checkpoints."""
+    import os
+
+    from raft_tpu_torch.sweep import grid_points, run_sweep
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ref = run_sweep(rt.designs.demo_semi(n_cases=2), grid_points(GLOO_AXES),
+                    _sweep_point, device=CARD, chunk=1, verbose=False)
+    script = os.path.join(tmp, "gloo_rank.py")
+    with open(script, "w") as f:
+        f.write(_GLOO_RANK)
+    init = "file://" + os.path.join(tmp, "gloo_init")
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, script, str(r), devs[r % len(devs)], init,
+         os.path.join(tmp, "gloo_ck"), os.path.join(tmp, f"gloo_{r}.npz"),
+         json.dumps(GLOO_AXES)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=tmp) for r in range(2)]
+    reports = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"gloo rank exit {p.returncode}: "
+                                     f"{se[-3000:]}")
+            reports.append(json.loads(so.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    wall = time.perf_counter() - t0
+    for r in range(2):
+        got = np.load(os.path.join(tmp, f"gloo_{r}.npz"))
+        for key in ("Xi", "converged", "iters"):
+            if not np.array_equal(got[key], ref[key]):
+                raise AssertionError(f"gloo rank {r} {key} differs from "
+                                     f"the single-process run")
+    n_chunks = len(grid_points(GLOO_AXES))
+    if [rep["writes"] for rep in reports] != [n_chunks, 0]:
+        raise AssertionError(f"checkpoint writers: {reports}")
+    launches = sum(rep["gj_solve"] for rep in reports)
+    on = [devs[r % len(devs)] for r in range(2)]
+    print(f"phase mesh gloo: {card} ranks=2 on {on} points={n_chunks} "
+          f"bit_identical_to_one_process=True checkpoints rank0={reports[0]['writes']} rank1="
+          f"{reports[1]['writes']} gj_launches per rank="
+          f"{[rep['gj_solve'] for rep in reports]} wall_s={wall:.1f}",
+          flush=True)
+    return launches
+
+
+def mesh_phases(rt, bg, gk, fk, bem_model, card):
+    """Phases 39-44: the multi-device paths over the device list."""
+    import tempfile
+
+    devs = mesh_devices()
+    l_bem = mesh_bem_phase(rt, bg, devs, bem_model)
+    l_sweep = mesh_sweep_phase(rt, gk, fk, devs, card)
+    mesh_rotor_phase(rt, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        l_serve = mesh_serve_phase(rt, gk, devs, tmp)
+        l_gloo = mesh_gloo_phase(rt, gk, devs, card, tmp)
+    return dict(bem=l_bem, sweep=l_sweep, serve=l_serve["serve"],
+                router=l_serve["router"], gloo=l_gloo)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3441,6 +3817,7 @@ def main():
     bem_report_cost_phase(rt, bg, Timers, bem_model)
     l_stream = bem_full_width_phase(rt, bg, Timers, bem_model)
     serve_sigterm_phase(rt)
+    l_mesh = mesh_phases(rt, bg, gk, fk, bem_model, card)
     lint_phase()
     new_paths = dict(serve=l_serve["coalesce"]["gj_solve"],
                      serve_http=l_net["http"]["gj_solve"],
@@ -3453,7 +3830,13 @@ def main():
                      backward_omdao=l_omdao["gj_solve_backward"],
                      cli=l_cli["gj_solve"], checked=l_checked["gj_solve"],
                      **{f"omdao_bem_{k}": v for k, v in l_omdao_bem.items()},
-             **{f"streamed_{k}": v for k, v in l_stream.items()})
+             **{f"streamed_{k}": v for k, v in l_stream.items()},
+             mesh_sweep_waterfall=l_mesh["sweep"]["waterfall"]["gj_solve"],
+             mesh_sweep_fused=l_mesh["sweep"]["fused"]["gj_solve"],
+             mesh_sweep_fused_block=l_mesh["sweep"]["fused"]["fused_block"],
+             mesh_serve=l_mesh["serve"], mesh_router=l_mesh["router"],
+             mesh_gloo=l_mesh["gloo"],
+             **{f"mesh_bem_{k}": v for k, v in l_mesh["bem"].items()})
     if not all(v > 0 for v in new_paths.values()):
         raise AssertionError(f"a kernel was not launched on a new path: "
                              f"{new_paths}")
@@ -3492,6 +3875,12 @@ def main():
                  "gj_solve_backward"],
              launches_router=l_net["router"]["gj_solve"],
              launches_autoscale=l_net["autoscale"]["gj_solve"],
+             launches_mesh_sweep_waterfall=l_mesh["sweep"]["waterfall"][
+                 "gj_solve"],
+             launches_mesh_sweep_fused=l_mesh["sweep"]["fused"]["gj_solve"],
+             launches_mesh_serve=l_mesh["serve"],
+             launches_mesh_router=l_mesh["router"],
+             launches_mesh_gloo=l_mesh["gloo"],
              **g64, **bwd64),
         dict(name="fused_block", route="cuda",
              source="raft_tpu_torch/csrc/fused_block.cu",
@@ -3502,24 +3891,29 @@ def main():
              launches_sweep_fused=l_sweep["fused"]["fused_block"],
              launches_serve_fused=l_serve["fused"]["fused_block"],
              launches_serve_fused_per_dispatch=l_serve["fused"][
-                 "fused_block"] / l_serve["fused"]["dispatches"], **f64),
+                 "fused_block"] / l_serve["fused"]["dispatches"],
+             launches_mesh_sweep_fused=l_mesh["sweep"]["fused"][
+                 "fused_block"], **f64),
         dict(name="tile_inv", route="cuda",
              source="raft_tpu_torch/csrc/tile_inv.cu",
              replaces="raft_tpu/pallas_kernels.py:208",
              launches=l_bem["tile_inv"],
              launches_omdao_bem=l_omdao_bem["tile_inv"],
-             launches_streamed=l_stream["tile_inv"], **ti32),
+             launches_streamed=l_stream["tile_inv"],
+             launches_mesh_bem=l_mesh["bem"]["tile_inv"], **ti32),
         dict(name="mm", route="cuda", source="raft_tpu_torch/csrc/mm.cu",
              replaces="raft_tpu/pallas_kernels.py:253",
              launches=l_bem["mm"],
              launches_omdao_bem=l_omdao_bem["mm"],
              launches_streamed=l_stream["mm"],
+             launches_mesh_bem=l_mesh["bem"]["mm"],
              **mm32[torch.float32]["mm"]),
         dict(name="mm_sub", route="cuda", source="raft_tpu_torch/csrc/mm.cu",
              replaces="raft_tpu/pallas_kernels.py:263",
              launches=l_bem["mm_sub"],
              launches_omdao_bem=l_omdao_bem["mm_sub"],
              launches_streamed=l_stream["mm_sub"],
+             launches_mesh_bem=l_mesh["bem"]["mm_sub"],
              **mm32[torch.float32]["mm_sub"]),
     ]
     for k in kernels:

@@ -41,14 +41,19 @@ def _device(text):
 
 
 def _devices(text):
-    """The serve commands' device: one device, or a comma-separated list
-    of them naming one card (a list naming more than one raises: placing
-    replica i on card i is ROADMAP.md queue 1 step 8 item 2)."""
-    from raft_tpu_torch.serve.router import one_card
-
+    """The serve commands' device: one device, or with ``--replicas`` a
+    comma-separated list of them, replica i on entry i mod n."""
     for part in text.split(","):
         _device(part.strip())
-    return one_card(text)
+    return text
+
+
+def _serve_devices(text):
+    """``--serve-devices``: a lane-mesh width k, or a comma-separated
+    device list (``cuda:0,cuda:0``; repeats allowed)."""
+    if text.isdigit():
+        return int(text)
+    return [_device(part.strip()) for part in text.split(",")]
 
 
 def _analyze_main(argv):
@@ -88,8 +93,14 @@ def _serve_parser(prog, description):
                    default=None)
     p.add_argument("--device", type=_devices, default="cuda",
                    help="device of the dispatches: cuda (the default), "
-                        "cuda:N or cpu; every replica of --replicas runs "
-                        "on this one device")
+                        "cuda:N or cpu; with --replicas a comma-separated "
+                        "list places replica i on entry i mod n")
+    p.add_argument("--serve-devices", type=_serve_devices, default=None,
+                   metavar="K|LIST",
+                   help="the engine's lane mesh: K workers (K CPU workers, "
+                        "or the first K cards) or a device list, repeats "
+                        "allowed; every replica's own with --replicas "
+                        "(default: one dispatch per bucket)")
     p.add_argument("--fixed-point", choices=["legacy", "waterfall", "fused"],
                    default="legacy", help="the dispatch engine")
     p.add_argument("--cache-dir", default=None,
@@ -109,10 +120,14 @@ def _warmup_main(argv):
     from raft_tpu_torch.io.schema import load_design
     from raft_tpu_torch.serve import warmup
 
+    if "," in args.device:
+        p.error("a device list places --replicas; one engine's lane mesh "
+                "is --serve-devices")
     designs = [load_design(path) for path in args.designs]
     report = warmup(designs=designs or None, precision=args.precision,
                     cache_dir=args.cache_dir, device=args.device,
-                    fixed_point=args.fixed_point)
+                    fixed_point=args.fixed_point,
+                    devices=args.serve_devices)
     print(json.dumps(report, default=str), flush=True)
     return report
 
@@ -193,7 +208,8 @@ def _engine_config(args):
     cfg = EngineConfig(precision=args.precision, device=args.device,
                        cache_dir=args.cache_dir,
                        fixed_point=args.fixed_point, preempt=args.preempt,
-                       warm_handoff=args.warm_handoff, chaos=args.chaos)
+                       warm_handoff=args.warm_handoff, chaos=args.chaos,
+                       serve_devices=args.serve_devices)
     if args.window_ms is not None:
         cfg.window_ms = args.window_ms
     return cfg
@@ -215,7 +231,14 @@ def _router(args):
         fixed_point=args.fixed_point, window_ms=args.window_ms,
         warmup=not args.no_warmup, preempt=args.preempt,
         autoscale=args.autoscale, autoscale_config=scale,
-        coalesce=args.coalesce, chaos=args.chaos)
+        coalesce=args.coalesce, chaos=args.chaos,
+        replica_argv=() if args.serve_devices is None else (
+            "--serve-devices", _serve_devices_text(args.serve_devices)))
+
+
+def _serve_devices_text(serve_devices):
+    return str(serve_devices) if isinstance(serve_devices, int) \
+        else ",".join(serve_devices)
 
 
 def _serve_http_main(args, backend, ready):
@@ -311,6 +334,9 @@ def _serve_main(argv):
         p.error("--replicas needs --http")
     if args.autoscale and not args.replicas:
         p.error("--autoscale needs --replicas")
+    if "," in args.device and not args.replicas:
+        p.error("a device list places --replicas; one engine's lane mesh "
+                "is --serve-devices")
     if args.replicas:
         router = _router(args)
         return _serve_http_main(args, router, {"event": "ready", "spawn_s": {
@@ -325,7 +351,8 @@ def _serve_main(argv):
     if not args.no_warmup:
         report = warmup(designs=designs or None, precision=args.precision,
                         cache_dir=args.cache_dir, device=args.device,
-                        fixed_point=args.fixed_point)
+                        fixed_point=args.fixed_point,
+                        devices=args.serve_devices)
     if args.http is not None:
         eng = Engine(cfg)
         return _serve_http_main(args, eng, _ready(eng, report))

@@ -35,8 +35,12 @@ rows, the [nw] aero-servo terms) enter the device path through the Model's
    guesses, then the implicit rule dphi/dx = -R_x / R_phi at the root
    reached, as ``lax.custom_root`` linearizes it in the JAX package.
 
-The host-mesh sharding of :meth:`Rotor.run_bem_batch` (``n_devices`` > 1)
-raises ``NotImplementedError`` (ROADMAP.md, queue 1 step 8).
+The host workers of :meth:`Rotor.run_bem_batch` (``n_devices``, or the
+Rotor's ``host_devices``; the JAX package's host mesh): the lanes are cut
+into fixed blocks of ``_LANE_BLOCK`` lanes, padded by repeating the last
+lane, and the blocks are dealt to n CPU worker threads
+(``utils.placement.DeviceWorkers``).  Every block is the same program on
+one intra-op thread, so the widths give the same bits.
 """
 
 import numpy as np
@@ -44,6 +48,7 @@ import torch
 from scipy.interpolate import PchipInterpolator
 
 from raft_tpu_torch.io.schema import get_from_dict
+from raft_tpu_torch.utils.placement import DeviceWorkers, host_threads
 from raft_tpu_torch.wind import kaimal_rotor_spectrum
 
 _RAD2DEG = 57.29577951308232
@@ -51,9 +56,14 @@ _RPM2RADPS = 0.1047  # the reference's rounded conversion (raft_rotor.py:32)
 _F64 = torch.float64
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1 step 8)")
+# Lanes of one block of the host workers' program.  The block program is
+# [_LANE_BLOCK]-shaped at every worker count: the lane batch is cut into
+# super-blocks of _LANE_BLOCK x n lanes, and each block goes to one of n
+# workers.  A fixed block is what makes the widths bit-equal: on the CPU
+# an elementwise loop takes a scalar tail where the vector loop ends, so
+# a lane's bits may depend on the batch it rides in (the JAX package's
+# reason is XLA fusing by batch shape, raft_tpu/aero.py:483-492).
+_LANE_BLOCK = 64
 
 
 # ---------------------------------------------------------------- airfoils
@@ -763,7 +773,15 @@ class Rotor:
     """Rotor aerodynamics + control for the frequency-domain model
     (reference raft/raft_rotor.py:35-489)."""
 
-    def __init__(self, turbine, w):
+    def __init__(self, turbine, w, host_devices=1):
+        """``host_devices``: the host workers :meth:`run_bem_batch` deals
+        its lane blocks to when not given ``n_devices`` (the JAX package
+        reads an environment variable); 1, the default, evaluates a
+        batch as one program."""
+        self.host_devices = int(host_devices)
+        if self.host_devices < 1:
+            raise ValueError(f"host_devices must be >= 1, got {host_devices}")
+        self.last_batch_info = None
         self.w = np.array(w)
         self.Zhub = float(turbine["Zhub"])
         self.shaft_tilt = float(turbine["shaft_tilt"])     # deg
@@ -892,21 +910,49 @@ class Rotor:
         return_resid : also return each lane's worst |Ning residual| at
             the returned roots [nt] (the guided path's; None for the
             bracketed path)
-        n_devices : more than one host device raises
-            ``NotImplementedError``
+        n_devices : host workers (the JAX package's host-mesh width);
+            None takes the Rotor's ``host_devices``.  Given, or with
+            ``host_devices`` > 1, the lanes run the block program: blocks
+            of ``_LANE_BLOCK`` lanes (the last lane repeated to fill whole
+            super-blocks of ``_LANE_BLOCK`` x n), dealt to n worker
+            threads, never more workers than blocks; every width gives the
+            same bits.  Otherwise the batch is one program.
+            ``last_batch_info`` records ``lanes``, ``lanes_padded``,
+            ``n_devices``, ``dispatches`` (super-blocks) and ``guided``.
         derivs : False skips the derivatives (J is then None); the loads
             are the same bits either way
         Returns (vals [nt, 10], J [nt, 10, 3][, phi][, resid]) as NumPy
         float64: vals = (T, Q, P, CP, CT, CQ, Y, Z, My, Mz), J their
         derivatives in (U, Omega, pitch), SI.
         """
-        if n_devices is not None and int(n_devices) > 1:
-            raise _not_ported("host-mesh sharding of the rotor lanes")
         Uhub = np.array(Uhub, np.float64, ndmin=1)
         ptfm_pitch = np.broadcast_to(np.asarray(ptfm_pitch, np.float64),
                                      Uhub.shape)
         yaw = np.zeros_like(Uhub) if yaw_misalign is None else \
             np.broadcast_to(np.asarray(yaw_misalign, np.float64), Uhub.shape)
+        guided = phi0 is not None
+        phi0 = None if not guided else np.asarray(phi0, np.float64)
+        n = Uhub.size
+        workers = self.host_devices if n_devices is None else int(n_devices)
+        if workers < 1:
+            raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+        if n_devices is None and workers == 1:
+            self.last_batch_info = {"lanes": n, "lanes_padded": n,
+                                    "n_devices": 1, "dispatches": 1,
+                                    "guided": guided}
+            res = self._evaluate(Uhub, ptfm_pitch, yaw, phi0, derivs)
+        else:
+            res = self._evaluate_blocks(Uhub, ptfm_pitch, yaw, phi0, derivs,
+                                        workers)
+        out = [res[0], res[1]]
+        if return_phi:
+            out.append(res[2])
+        if return_resid:
+            out.append(res[3] if guided else None)
+        return tuple(out)
+
+    def _evaluate(self, Uhub, ptfm_pitch, yaw, phi0, derivs):
+        """One program over every lane: (vals, J | None, phi, resid)."""
         Omega_rpm, pitch_deg = self._operating_point(Uhub)
         tilt = np.deg2rad(self.shaft_tilt) + ptfm_pitch
         geom = dict(self.geom, tilt=torch.as_tensor(tilt),
@@ -917,14 +963,38 @@ class Rotor:
                              torch.as_tensor(np.deg2rad(pitch_deg)), geom,
                              self.polars, self.env,
                              phi0=None if not guided else torch.as_tensor(
-                                 np.asarray(phi0, np.float64)),
+                                 phi0),
                              n_newton=3 if guided else 2, derivs=derivs)
-        res = [out["vals"].numpy(), out["J"].numpy() if derivs else None]
-        if return_phi:
-            res.append(out["phi"].numpy())
-        if return_resid:
-            res.append(out["resid"].numpy() if guided else None)
-        return tuple(res)
+        return (out["vals"].numpy(), out["J"].numpy() if derivs else None,
+                out["phi"].numpy(), out["resid"].numpy())
+
+    def _evaluate_blocks(self, Uhub, ptfm_pitch, yaw, phi0, derivs,
+                         workers):
+        """The block program over ``workers`` host threads (at most one
+        per block), each on one intra-op thread (the workers are made
+        inside :func:`host_threads`, and keep its count)."""
+        n = Uhub.size
+        n_dev = max(1, min(workers, -(-n // _LANE_BLOCK)))
+        G = _LANE_BLOCK * n_dev
+        nb = -(-n // G) * G
+        idx = np.concatenate([np.arange(n), np.full(nb - n, n - 1, int)])
+        lanes = [Uhub[idx], ptfm_pitch[idx], yaw[idx],
+                 None if phi0 is None else phi0[idx]]
+        self.last_batch_info = {"lanes": n, "lanes_padded": nb,
+                                "n_devices": n_dev, "dispatches": nb // G,
+                                "guided": phi0 is not None}
+
+        def block(i):
+            sl = slice(i, i + _LANE_BLOCK)
+            return self._evaluate(*(None if a is None else a[sl]
+                                    for a in lanes), derivs)
+
+        with host_threads(), DeviceWorkers(["cpu"] * n_dev,
+                                           name="raft-rotor") as pool:
+            parts = pool.map(block, range(0, nb, _LANE_BLOCK))
+        return tuple(None if parts[0][k] is None
+                     else np.concatenate([p[k] for p in parts])[:n]
+                     for k in range(4))
 
     # ---------------------------------------------------- aero-servo terms
 

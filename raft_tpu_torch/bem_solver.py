@@ -1,5 +1,5 @@
 """Native first-order radiation/diffraction panel solver (HAMS equivalent)
-— the port of ``raft_tpu/bem_solver.py``'s single-device solve.
+— the port of ``raft_tpu/bem_solver.py``.
 
   * constant-strength source panels on the wetted hull (meshed by
     raft_tpu_torch/mesh.py),
@@ -46,8 +46,13 @@ bit for bit the direct path's result.  ``report_cost=True`` adds
 ``flops``, the operation count of :func:`solve_cost` (the JAX package
 reads XLA's compiled cost; the port counts its own).
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
-step): the multi-device path (``n_devices`` > 1).
+Over a device list (``devices=`` or ``n_devices=`` > 1) the frequency
+batch is sharded (:func:`_run_sharded`), one worker per entry
+(``utils.placement.DeviceWorkers``), by the JAX package's rule: the
+frequencies (``freq``), or when they alone underfill the list the
+flattened frequency x heading pairs (``freqbeta``); each shard runs the
+single-device solve of its frequencies, so ``freq`` gives the
+single-device bits.
 """
 
 import math
@@ -62,8 +67,13 @@ from raft_tpu_torch.kernels.bem_gj import (
     gj_buffer,
     gj_stage,
     gj_stage_buffer,
+    thread_launches,
 )
-from raft_tpu_torch.utils.placement import resolve_device
+from raft_tpu_torch.utils.placement import (
+    DeviceWorkers,
+    resolve_device,
+    resolve_devices,
+)
 from raft_tpu_torch.utils.profiling import logger, timer
 
 _G_GAUSS = np.array([-1.0 / np.sqrt(3.0), 1.0 / np.sqrt(3.0)])
@@ -118,11 +128,6 @@ STREAM_BAND_BUDGET_S = 5.0
 # are [rows * N * Q, deg + 1]; rows are chosen so rows * N * Q stays under
 # this many pair points (~1 GB per float32 basis at degree 56).
 _ROW_BLOCK_POINTS = 4.5e6
-
-
-def _not_ported(what, step):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1 step {step})")
 
 
 @dataclass
@@ -575,6 +580,137 @@ def _run_streamed(omegas, betas, x, nrm, area, y, w_q, S0, K0, vmodes, jump,
     return res, {"bands": D, "solve_stages": len(steps)}
 
 
+# Device seconds of one sharded dispatch per worker: each of the workers
+# solves chunk_dev items per dispatch, chunk_dev bounded so that
+# chunk_dev items of the card form's assembly (_ASSEMBLY_S_AT_2560,
+# scaled as N^2) fit the budget.  The JAX package's 45 s, with this
+# card's per-frequency time.
+SHARD_DISPATCH_BUDGET_S = 45.0
+
+
+def _solve_devices(device, n_devices, devices, backend):
+    """The device list of a solve: ``devices`` (capped at ``n_devices``),
+    else ``n_devices`` entries (``cpu`` repeated on the CPU, the first
+    cards on the card), else the one ``device``."""
+    if devices is not None:
+        devs = resolve_devices(devices)
+        if n_devices is not None:
+            if int(n_devices) > len(devs):
+                raise ValueError(f"n_devices={n_devices} exceeds the "
+                                 f"{len(devs)} entries of devices")
+            devs = devs[:max(1, int(n_devices))]
+        return devs
+    dev = resolve_device(device if device is not None else backend)
+    n = 1 if n_devices is None else max(1, int(n_devices))
+    if n == 1:
+        return (dev,)
+    return resolve_devices([dev] * n if dev.type == "cpu" else n)
+
+
+def _shard_mode(n_dev, nw, nb, streamed):
+    """The JAX package's sharding rule: ``freq`` when the frequencies fill
+    the list, ``freqbeta`` when only the frequency x heading pairs do,
+    else None (the single-device solve, as on the streamed path)."""
+    if streamed or n_dev < 2:
+        return None
+    if nw >= n_dev:
+        return "freq"
+    if nb > 1 and nw * nb >= n_dev:
+        return "freqbeta"
+    return None
+
+
+def _run_sharded(omegas, betas, host_ops, devs, mode, n, real_block):
+    """The solve over the device list ``devs``: the items (frequencies,
+    or in ``freqbeta`` mode the flattened (frequency, heading) pairs with
+    one heading each) are repeat-padded to whole dispatches of
+    ``chunk_dev`` items per worker and dealt out in order, worker d
+    taking items [d * chunk_dev, (d + 1) * chunk_dev) of each dispatch.
+    Each worker runs :func:`_solve_all` on its items, one frequency after
+    another as the single-device solve does, on its own copy of the
+    frequency-independent operands (placed once per distinct device).
+
+    ``host_ops`` is ``(x, nrm, area, y, w_q, S0, K0, vmodes, jump, tables,
+    g, rho, depth, kmax_geom, finite)`` with the arrays as host NumPy and
+    ``tables`` a dict or tuple of them.  Returns ``((A, B, Xr, Xi) host
+    NumPy float64 in the caller's layout, info)``, ``info`` holding
+    ``chunk_total``, ``n_items`` and ``shard_launches`` (each worker's
+    BEM kernel launches)."""
+    (x, nrm, area, y, w_q, S0, K0, vmodes, jump, tables, g, rho, depth,
+     kmax_geom, finite) = host_ops
+    n_dev = len(devs)
+    nw, nb = len(omegas), len(betas)
+    if mode == "freqbeta":
+        items_om = np.repeat(omegas, nb)
+        items_bet = np.tile(betas, nw)[:, None]
+    else:
+        items_om = omegas
+        items_bet = np.broadcast_to(betas, (nw, nb))
+    n_items = len(items_om)
+    chunk_dev = -(-n_items // n_dev)
+    if real_block:
+        per_freq_s = max(_ASSEMBLY_S_AT_2560 * (n / 2560.0) ** 2, 1e-3)
+        if chunk_dev * per_freq_s > SHARD_DISPATCH_BUDGET_S:
+            chunk_dev = max(1, int(SHARD_DISPATCH_BUDGET_S / per_freq_s))
+    chunk_total = chunk_dev * n_dev
+    n_pad = -(-n_items // chunk_total) * chunk_total
+    pad = np.concatenate([np.arange(n_items),
+                          np.full(n_pad - n_items, n_items - 1, int)])
+    items_om, items_bet = items_om[pad], items_bet[pad]
+
+    def put(a, dev):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    placed = {}
+    for dev in devs:
+        if dev not in placed:
+            tabs = ({k: put(v, dev) for k, v in tables.items()}
+                    if isinstance(tables, dict)
+                    else tuple(put(t, dev) for t in tables))
+            placed[dev] = (tuple(put(a, dev) for a in (
+                x, nrm, area, y, w_q, S0, K0, vmodes, jump)), tabs,
+                put(depth, dev), put(kmax_geom, dev))
+
+    def shard(dev, idx):
+        """Items ``idx`` on ``dev``: one _solve_all over their frequencies
+        and every heading, or in ``freqbeta`` mode one per item over its
+        one heading."""
+        arrs, tabs, depth_t, kmax_t = placed[dev]
+        before = thread_launches()
+        if mode == "freqbeta":
+            parts = [_solve_all(put(items_om[i:i + 1], dev),
+                                put(items_bet[i], dev), *arrs, tabs, g,
+                                rho, real_block, depth_t, kmax_t, finite)
+                     for i in idx]
+            res = tuple(torch.cat([p[j] for p in parts]) for j in range(4))
+        else:
+            res = _solve_all(put(items_om[idx], dev), put(betas, dev), *arrs,
+                             tabs, g, rho, real_block, depth_t, kmax_t,
+                             finite)
+        after = thread_launches()
+        return (tuple(t.cpu().numpy().astype(np.float64) for t in res),
+                {k: after[k] - before[k] for k in after})
+
+    with DeviceWorkers(devs, name="raft-bem-shard") as workers:
+        futs = [workers.submit(d, shard, devs[d], np.arange(
+                    i + d * chunk_dev, i + (d + 1) * chunk_dev))
+                for i in range(0, n_pad, chunk_total) for d in range(n_dev)]
+        outs = [f.result() for f in futs]
+    A, B, Xr, Xi = (np.concatenate([o[0][j] for o in outs])[:n_items]
+                    for j in range(4))
+    if mode == "freqbeta":
+        A = A[::nb]                     # radiation: one copy per omega
+        B = B[::nb]
+        Xr = Xr[:, 0, :].reshape(nw, nb, 6)
+        Xi = Xi[:, 0, :].reshape(nw, nb, 6)
+    launches = [dict.fromkeys(outs[0][1], 0) for _ in range(n_dev)]
+    for j, (_, counts) in enumerate(outs):
+        for k, v in counts.items():
+            launches[j % n_dev][k] += v
+    return (A, B, Xr, Xi), {"chunk_total": chunk_total, "n_items": n_items,
+                            "shard_launches": launches}
+
+
 # frequency-independent Rankine matrices keyed by (mesh bytes, depth) —
 # raw bytes, so distinct meshes can never collide; FIFO bound by total
 # byte budget (each entry is two [N,N] f32 matrices)
@@ -614,7 +750,7 @@ def _cached_rankine(pa, panels, lid_panels, has_lid, depth, lid_mask):
 
 def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
               quad="gauss", backend=None, depth=np.inf, lid_panels=None,
-              report_cost=False, n_devices=None, device=None):
+              report_cost=False, n_devices=None, device=None, devices=None):
     """Radiation + diffraction solve over frequencies.
 
     panels : [npan,4,3] wetted-hull panels (outward normals)
@@ -631,9 +767,23 @@ def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
     device : where the solve's tensors live; defaults to 'cuda' for the
         card form and 'cpu' for the CPU form.  The card form on the CPU
         runs the blocked Gauss–Jordan through the kernels' plain versions.
-    n_devices : None or 1 (the single-device solve).
+    devices : a device list (``utils.placement.resolve_devices``: names,
+        a comma-separated string, repeats allowed, or N for the first N
+        cards) the solve is sharded over; replaces ``device``.
+    n_devices : without ``devices``, the number of workers: ``cpu``
+        repeated on the CPU, the first N cards on the card (a card the
+        host lacks raises); with ``devices``, a cap on its entries.  None
+        or 1 is the single-device solve (the JAX package's None is every
+        local device).  With more than one, the solve is sharded when the
+        items fill the list (:func:`_shard_mode`, :func:`_run_sharded`),
+        and the output adds ``sharded`` (``"freq"``/``"freqbeta"``),
+        ``n_devices`` and ``shard_launches`` (each worker's BEM kernel
+        launches); else (too few items, or the streamed path) it is the
+        single-device solve on the list's first entry.
     report_cost : add ``flops``, :func:`solve_cost` times the number of
-        frequencies (not on the streamed path, as in the JAX package).
+        items solved (frequencies; frequency x heading pairs of one heading
+        each in ``freqbeta`` mode), not on the streamed path, as in the
+        JAX package.
     Returns dict with A [nw,6,6], B [nw,6,6] and X [nw, nbeta, 6] complex
     (excitation per unit wave amplitude, e^{+iwt} convention,
     PRP-referenced), plus the panel counts; a card-form mesh above
@@ -641,13 +791,12 @@ def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
     ``streamed`` (True), ``stream_bands`` and ``stream_solve_dispatches``
     (the bands and elimination stages per frequency).
     """
-    if n_devices is not None and int(n_devices) > 1:
-        raise _not_ported("the multi-device BEM solve (n_devices > 1)", 9)
     backend = "cuda" if backend is None else backend
     if backend not in ("cuda", "cpu"):
         raise ValueError(f"backend must be 'cuda' or 'cpu', got {backend!r}")
     real_block = backend == "cuda"
-    device = resolve_device(device if device is not None else backend)
+    devs = _solve_devices(device, n_devices, devices, backend)
+    device = devs[0]
 
     pa = panel_arrays(panels)        # 2x2 Gauss for the singular Rankine part
     n_body = pa.n
@@ -704,11 +853,43 @@ def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
     def put(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
-    if real_block:
-        tables = {k: put(v) for k, v in greens.load_cheb_tables().items()}
-    else:
-        tables = tuple(put(t) for t in greens.load_tables())
     omegas = np.atleast_1d(np.asarray(omegas, float))
+    betas_a = np.atleast_1d(np.asarray(betas, float))
+    mode = _shard_mode(len(devs), len(omegas), len(betas_a), streamed)
+    if real_block:
+        tables = greens.load_cheb_tables()
+    else:
+        tables = tuple(greens.load_tables())
+    if mode:
+        with timer("bem_device"):
+            (A, B, Xr, Xi), info = _run_sharded(
+                omegas, betas_a, (pa.cen, pa.nrm, pa.area, pa_wave.qpts,
+                                  pa_wave.qwts, S0, K0, vmodes, jump, tables,
+                                  float(g), float(rho),
+                                  depth if np.isfinite(depth) else 0.0,
+                                  kmax_geom, bool(np.isfinite(depth))),
+                devs, mode, pa.n, real_block)
+        out = {
+            "w": omegas, "A": A, "B": B, "X": Xr + 1j * Xi,
+            "betas": np.asarray(betas, float), "npanels": n_real,
+            "npanels_solved": pa.n, "sharded": mode,
+            "n_devices": len(devs),
+            "shard_launches": info["shard_launches"],
+        }
+        if report_cost:
+            nb_item = 1 if mode == "freqbeta" else len(betas_a)
+            per_item = solve_cost(pa.n, nb_item, real_block,
+                                  bool(np.isfinite(depth)),
+                                  pa_wave.qpts.shape[1])["total"]
+            # one dispatch's count, scaled by items / chunk_total as the
+            # JAX package scales its compiled dispatch's count
+            out["flops"] = per_item * info["chunk_total"] * (
+                info["n_items"] / info["chunk_total"])
+        return out
+    if real_block:
+        tables = {k: put(v) for k, v in tables.items()}
+    else:
+        tables = tuple(put(t) for t in tables)
     ops = (put(omegas), put(np.atleast_1d(np.asarray(betas, float))),
            put(pa.cen), put(pa.nrm), put(pa.area), put(pa_wave.qpts),
            put(pa_wave.qwts), put(S0), put(K0), put(vmodes), put(jump),
@@ -832,7 +1013,8 @@ def max_resolved_omega(panel_size, g=9.81, panels_per_wavelength=7.0):
 def coeffs_from_members(members, omegas, headings_deg=(0.0,), rho=1025.0,
                         g=9.81, dz_max=0.0, da_max=0.0, panels=None,
                         quad="gauss", backend=None, depth=np.inf,
-                        irr_removal=True, n_devices=None, device=None):
+                        irr_removal=True, n_devices=None, device=None,
+                        devices=None):
     """Mesh all potMod members, run the native solver, return a
     HydroCoeffs set (the container the WAMIT-file import path produces,
     so the Model pipeline is agnostic to where coefficients came from).
@@ -867,7 +1049,7 @@ def coeffs_from_members(members, omegas, headings_deg=(0.0,), rho=1025.0,
     betas = np.deg2rad(np.asarray(headings_deg, float))
     out = solve_bem(panels, w_solve, betas=betas, rho=rho, g=g, quad=quad,
                     backend=backend, depth=depth, lid_panels=lids,
-                    n_devices=n_devices, device=device)
+                    n_devices=n_devices, device=device, devices=devices)
     return HydroCoeffs(
         w=out["w"], A=out["A"], B=out["B"],
         headings=np.asarray(headings_deg, float), X=out["X"],

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,6 +37,11 @@ LIBRARIES = {
 }
 
 counters = {"nvcc_builds": 0, "libraries_loaded": 0}
+# held while a library is built and loaded: the shard workers of one
+# process may first reach a kernel together, and build it once
+lock = threading.RLock()
+# held while a launch counter is incremented from a shard worker
+count_lock = threading.Lock()
 
 
 def digest(source, headers):
@@ -82,7 +88,7 @@ def start(source, headers, build_dir, compiler, verbose=False):
     if os.path.exists(lib_path) and not verbose:
         return Job(source, lib_path, None, None)
     os.makedirs(build_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [compiler, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
            "-I", CSRC, "-o", tmp, source]
     try:

@@ -36,6 +36,7 @@ tile inverted, one per product.
 
 import ctypes
 import os
+import threading
 
 import torch
 
@@ -55,6 +56,7 @@ MAX_TILE = 512
 RHS_ALIGN = 8
 
 launches = {"tile_inv": 0, "mm": 0, "mm_sub": 0}
+_local = threading.local()
 _libs = {}
 
 _VP, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
@@ -63,6 +65,12 @@ _SIGNATURES = {
     "mm": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
     "mm_sub": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
 }
+
+
+def thread_launches():
+    """This thread's share of ``launches``: the kernel calls made from
+    the calling thread (a shard worker's own count)."""
+    return dict(_local.__dict__.get("launches", dict.fromkeys(launches, 0)))
 
 
 def reset_launches():
@@ -86,6 +94,13 @@ def build(verbose=False, job=None):
     compiler's report of registers and spills."""
     if len(_libs) == len(SOURCES) and not verbose and job is None:
         return _libs
+    with _build.lock:
+        if len(_libs) == len(SOURCES) and not verbose and job is None:
+            return _libs
+        return _build_locked(verbose, job)
+
+
+def _build_locked(verbose, job):
     jobs = job or start_build(verbose)
     libs = {j.source: _build.finish(j, verbose) for j in jobs}
     for src, names in ((TILE_INV_SOURCE, ("tile_inv",)),
@@ -127,7 +142,11 @@ def _check_float(name, *ts):
 def _launched(name, rc):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    launches[name] += 1
+    with _build.count_lock:
+        launches[name] += 1
+        mine = _local.__dict__.setdefault("launches",
+                                          dict.fromkeys(launches, 0))
+        mine[name] += 1
 
 
 # ------------------------------------------------------------ tile inverse

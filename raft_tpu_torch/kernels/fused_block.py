@@ -96,20 +96,23 @@ def build(verbose=False, job=None):
     global _lib
     if _lib is not None and not verbose and job is None:
         return _lib
-    lib = _build.finish(job or start_build(verbose), verbose)
-    for name in ("fused_block_f64", "fused_block_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                       ctypes.POINTER(ctypes.c_void_p),
-                       _INT, _INT, _INT, _INT, ctypes.c_double,
-                       ctypes.c_double, ctypes.c_double, ctypes.c_double,
-                       ctypes.c_double, _INT, _INT, ctypes.c_void_p]
-        fn.restype = _INT
-    lib.fused_block_shape.argtypes = [_INT, _INT, _INT,
-                                      *(ctypes.POINTER(_INT),) * 3]
-    lib.fused_block_shape.restype = _INT
-    _lib = lib
-    return lib
+    with _build.lock:
+        if _lib is not None and not verbose and job is None:
+            return _lib
+        lib = _build.finish(job or start_build(verbose), verbose)
+        for name in ("fused_block_f64", "fused_block_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                           ctypes.POINTER(ctypes.c_void_p),
+                           _INT, _INT, _INT, _INT, ctypes.c_double,
+                           ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                           ctypes.c_double, _INT, _INT, ctypes.c_void_p]
+            fn.restype = _INT
+        lib.fused_block_shape.argtypes = [_INT, _INT, _INT,
+                                          *(ctypes.POINTER(_INT),) * 3]
+        lib.fused_block_shape.restype = _INT
+        _lib = lib
+        return lib
 
 
 def launch_shape(N, W, dtype):
@@ -219,7 +222,8 @@ def fused_block(nodes, u, C, M, B, Fr, Fi, state, *, w, dw, rho, relax,
     if rc != 0:
         raise RuntimeError(f"fused_block kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return outs
 
 

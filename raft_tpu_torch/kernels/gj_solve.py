@@ -55,17 +55,20 @@ def build(verbose=False, job=None):
     global _lib
     if _lib is not None and not verbose and job is None:
         return _lib
-    lib = _build.finish(job or start_build(verbose), verbose)
-    for name in ("gj_solve_f64", "gj_solve_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       _INT, _INT, _INT, ctypes.c_void_p]
-        fn.restype = _INT
-    lib.gj_solve_shape.argtypes = [_INT, _INT, ctypes.POINTER(_INT),
-                                   ctypes.POINTER(_INT)]
-    lib.gj_solve_shape.restype = _INT
-    _lib = lib
-    return lib
+    with _build.lock:
+        if _lib is not None and not verbose and job is None:
+            return _lib
+        lib = _build.finish(job or start_build(verbose), verbose)
+        for name in ("gj_solve_f64", "gj_solve_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           _INT, _INT, _INT, ctypes.c_void_p]
+            fn.restype = _INT
+        lib.gj_solve_shape.argtypes = [_INT, _INT, ctypes.POINTER(_INT),
+                                       ctypes.POINTER(_INT)]
+        lib.gj_solve_shape.restype = _INT
+        _lib = lib
+        return lib
 
 
 def launch_shape(B, m=13):
@@ -117,10 +120,11 @@ def gj_solve(M, backward=False):
                 stream)
     if rc != 0:
         raise RuntimeError(f"gj_solve kernel launch failed: CUDA error {rc}")
-    if backward:
-        launches_backward += 1
-    else:
-        launches += 1
+    with _build.count_lock:
+        if backward:
+            launches_backward += 1
+        else:
+            launches += 1
     return out, piv
 
 

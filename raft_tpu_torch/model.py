@@ -87,11 +87,6 @@ _RAD2DEG = 57.29577951308232
 _SPECTRUM_CODES = {"still": 0, "none": 0, "unit": 1, "JONSWAP": 2}
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1 step {item})")
-
-
 def _host(a):
     return torch.as_tensor(np.asarray(a, np.float64))
 
@@ -208,7 +203,11 @@ class Model:
     mixed_precision : bool
         bf16 operands with float32 accumulation in the fixed point's
         assembly (raft_tpu_torch/precision.py); off by default.
-    slots : raft_tpu_torch.serve.buckets.BucketSpec | None
+    host_devices : int
+        Host worker threads of the rotor's lane evaluation
+        (``aero.Rotor.run_bem_batch``); 1, the default, evaluates a batch
+        as one program.
+    slots :raft_tpu_torch.serve.buckets.BucketSpec | None
         Serving bucket: ``analyze_cases`` then packs its cases into the
         bucket's lanes (nodes zero-padded, padding lanes replicating
         lane 0) and runs the serving engine's dispatch of that bucket, so
@@ -219,7 +218,7 @@ class Model:
     """
 
     def __init__(self, design, precision=None, device=None, slots=None,
-                 mixed_precision=False):
+                 mixed_precision=False, host_devices=1):
         if not isinstance(design, dict):
             design = load_design(design)
         self.design = design
@@ -265,7 +264,7 @@ class Model:
             rot_cfg["rho_air"] = site["rho_air"]
             rot_cfg["mu_air"] = site["mu_air"]
             rot_cfg["shearExp"] = site["shearExp"]
-            self.rotor = Rotor(rot_cfg, self.w)
+            self.rotor = Rotor(rot_cfg, self.w, host_devices=host_devices)
 
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(precision)
@@ -342,7 +341,7 @@ class Model:
 
     def run_bem(self, headings=(0.0,), nw_bem=24, dz_max=None, da_max=None,
                 panels=None, quad="gauss", w_grid=None, irr_removal=True,
-                n_devices=None):
+                n_devices=None, devices=None):
         """Run the native radiation/diffraction panel solver on all potMod
         members (the reference's calcBEM path, raft/raft_fowt.py:318-423,
         with the external HAMS run replaced by
@@ -356,8 +355,8 @@ class Model:
         The solve follows the Model's device: on ``cuda`` it runs the card
         form (padded mesh, Chebyshev wave term, blocked Gauss–Jordan
         through the CUDA kernels), on ``cpu`` the CPU form (bilinear
-        tables, complex LU).  ``n_devices`` > 1 raises
-        ``NotImplementedError``.
+        tables, complex LU).  ``n_devices`` / ``devices`` shard the
+        frequencies over a device list (``bem_solver.solve_bem``).
         """
         from raft_tpu_torch.bem_solver import coeffs_from_members
 
@@ -378,7 +377,7 @@ class Model:
             dz_max=dz, da_max=da, panels=panels, quad=quad,
             backend="cuda" if self.device.type == "cuda" else "cpu",
             device=self.device, depth=self.depth,
-            irr_removal=irr_removal, n_devices=n_devices,
+            irr_removal=irr_removal, n_devices=n_devices, devices=devices,
         )
         return self.bem_coeffs
 

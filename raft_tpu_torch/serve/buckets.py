@@ -24,11 +24,14 @@ fused mode launches the ``fused_block`` kernel).  The mode is an
 explicit argument.  A dispatch ends with its results on the host, so a
 watchdog timing it times the device work.
 
-Lane topology: ``devices=None`` is one dispatch of the bucket;
-``devices=1`` runs fixed ``lane_block``-lane super-blocks on one card
-(the JAX package's lane-mesh program shape at width 1).  A wider lane
-mesh needs a multi-card host and raises ``NotImplementedError``
-(ROADMAP.md, queue 1 step 8 item 2).
+Lane topology: ``devices=None`` is one dispatch of the bucket; a lane
+mesh (``devices=k`` or a device list, :func:`serve_lane_devices`) cuts
+the megabatch into super-blocks of k x ``lane_block`` lanes (padding
+lanes replicate lane 0) and runs each super-block's k blocks at once,
+block i on worker i (``utils.placement.DeviceWorkers``).  Every block is
+the one ``lane_block``-lane dispatch at every width, so the widths give
+the same bits (the JAX package's lane mesh keeps its per-device
+partition at ``lane_block`` lanes for the same reason).
 """
 
 import contextlib
@@ -41,8 +44,19 @@ import torch
 
 from raft_tpu_torch.geometry import HydroNodes
 from raft_tpu_torch.health import SolveReport
-from raft_tpu_torch.utils.placement import complex_dtype, host_threads
-from raft_tpu_torch.waterfall import _map_nodes, _pad_rows
+from raft_tpu_torch.utils.placement import (
+    DeviceWorkers,
+    complex_dtype,
+    host_threads,
+    resolve_device,
+    resolve_devices,
+)
+from raft_tpu_torch.waterfall import (
+    _map_nodes,
+    _merge_stats,
+    _pad_rows,
+    last_dispatch_stats,
+)
 
 # float node fields by trailing shape (node axis leading); masks are bool
 _NODE_FIELD_SHAPES = {
@@ -54,7 +68,7 @@ _NODE_FIELDS = tuple(f.name for f in dataclasses.fields(HydroNodes))
 
 MODES = ("legacy", "waterfall", "fused")
 
-#: lanes per super-block of the fixed-block dispatch (``devices=1``)
+#: lanes per block of the lane mesh (one block per worker per super-block)
 DEFAULT_LANE_BLOCK = 8
 
 #: slot and phase programs built in this process (each first use of a
@@ -270,46 +284,86 @@ def _host_out(xr, xi, rep):
     return (xr.cpu(), xi.cpu(), SolveReport(*(f.cpu() for f in rep)))
 
 
+def serve_lane_devices(device=None, n_devices=None):
+    """The device list a served megabatch's lanes are dealt over, or None
+    for the one-dispatch path (the JAX package's resolution without its
+    environment read): ``n_devices`` None is None; an int
+    k is k workers, ``device`` repeated on the CPU and the first k cards
+    on the card (0: every card, or one CPU worker); a device list
+    (``utils.placement.resolve_devices``; repeats allowed) is itself.  A
+    card the host lacks raises."""
+    if n_devices is None:
+        return None
+    if isinstance(n_devices, (int, np.integer)) \
+            and not isinstance(n_devices, bool):
+        k = int(n_devices)
+        dev = resolve_device(device)
+        if dev.type == "cpu":
+            return resolve_devices([dev] * max(k, 1))
+        return resolve_devices(k if k > 0 else torch.cuda.device_count())
+    return resolve_devices(n_devices)
+
+
 def dispatch_slots(physics, spec, nodes_slots, args_slots, device,
                    mode="legacy", block=None, mixed_precision=False,
-                   devices=None, lane_block=None):
+                   devices=None, lane_block=None, workers=None):
     """Run one bucket megabatch on ``device``; returns ``(xr [L, 6, nw],
     xi, SolveReport [L])`` as host tensors (callers unpack by slot
     range).
 
     mode : ``legacy`` | ``waterfall`` | ``fused`` (see the module
         docstring); ``block`` the waterfall's trips per block.
-    devices : None (one dispatch) or 1 (fixed ``lane_block`` super-blocks
-        on one card); wider raises ``NotImplementedError``.
+    devices : None (one dispatch), or the lane mesh: k or a device list
+        (:func:`serve_lane_devices`), super-blocks of k x ``lane_block``
+        lanes whose k blocks run at once, block i on entry i (``device``
+        is then unused); ``workers``, the mesh's
+        ``utils.placement.DeviceWorkers`` when the caller keeps them (the
+        engine), else made for this call.
 
     On the CPU the dispatch runs on one intra-op thread, so its bits do
     not depend on what else the process runs."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if devices not in (None, 1):
-        from raft_tpu_torch.model import _not_ported
-
-        raise _not_ported(f"a served lane mesh over {devices} devices",
-                          "8 item 2")
-    device = torch.device(device)
-    if devices == 1:
+    if devices is not None:
+        devs = serve_lane_devices(device, devices)
+        n = len(devs)
         B = int(lane_block) if lane_block else DEFAULT_LANE_BLOCK
         L0 = args_slots[0].shape[0]
-        Lq = _ceil_to(L0, B)
+        Lq = _ceil_to(L0, B * n)
         nodes_p = _map_nodes(lambda a: _pad_rows(a, Lq), nodes_slots)
         args_p = tuple(_pad_rows(a, Lq) for a in args_slots)
-        outs = []
-        for s0 in range(0, Lq, B):
+
+        def one_block(d, s0):
             sl = slice(s0, s0 + B)
-            outs.append(dispatch_slots(
+            out = dispatch_slots(
                 physics, spec, _map_nodes(lambda a: a[sl], nodes_p),
-                tuple(a[sl] for a in args_p), device, mode=mode,
-                block=block, mixed_precision=mixed_precision))
+                tuple(a[sl] for a in args_p), d, mode=mode, block=block,
+                mixed_precision=mixed_precision)
+            return out, (last_dispatch_stats() if mode != "legacy"
+                         else None)
+
+        own = workers is None
+        if own:
+            workers = DeviceWorkers(devs, name="raft-serve-lane")
+        elif workers.devices != devs:
+            raise ValueError(f"workers on {workers.devices} for a lane mesh "
+                             f"over {devs}")
+        try:
+            futs = [workers.submit(j % n, one_block, devs[j % n], s0)
+                    for j, s0 in enumerate(range(0, Lq, B))]
+            outs, stats = zip(*(f.result() for f in futs))
+        finally:
+            if own:
+                workers.close()
+        if mode != "legacy":
+            # the megabatch's stats on this thread, as one dispatch's
+            _merge_stats(stats)
         take = lambda t: t[:L0]  # noqa: E731
         return (take(torch.cat([o[0] for o in outs])),
                 take(torch.cat([o[1] for o in outs])),
                 SolveReport(*(take(torch.cat(f)) for f in
                               zip(*(o[2] for o in outs)))))
+    device = torch.device(device)
     ctx = host_threads() if device.type == "cpu" \
         else contextlib.nullcontext()
     with ctx, torch.no_grad():

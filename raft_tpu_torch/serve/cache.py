@@ -141,10 +141,14 @@ def backend_name(device):
 
 def topology_flags(devices=None, lane_block=None):
     """The lane-topology keys: ``devices=None`` is one dispatch per
-    bucket; ``1`` the fixed-block super-blocks on one card."""
-    if not devices:
+    bucket; a lane mesh (its width, or its device list) records its
+    width and block, the JAX package's keys.  A block of another size or
+    a mesh of another width is another program shape, so a manifest or
+    result recorded under one topology is refused under another."""
+    if devices is None:
         return {"n_devices": 1, "mesh": None, "lane_block": None}
-    return {"n_devices": int(devices), "mesh": "lane",
+    width = devices if isinstance(devices, int) else len(devices)
+    return {"n_devices": int(width), "mesh": "lane",
             "lane_block": int(lane_block) if lane_block
             else _buckets.DEFAULT_LANE_BLOCK}
 

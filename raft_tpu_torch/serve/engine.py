@@ -81,6 +81,7 @@ from raft_tpu_torch.serve.buckets import (
     choose_bucket,
     dispatch_slots,
     pack_slots,
+    serve_lane_devices,
 )
 from raft_tpu_torch.serve.cache import (
     CompileWatcher,
@@ -98,8 +99,13 @@ from raft_tpu_torch.serve.result_cache import (
     result_key,
     sweep_chunk_key,
 )
-from raft_tpu_torch.utils.placement import host_threads, resolve_device
+from raft_tpu_torch.utils.placement import (
+    DeviceWorkers,
+    host_threads,
+    resolve_device,
+)
 from raft_tpu_torch.utils.profiling import logger
+from raft_tpu_torch.waterfall import _set_stats, last_dispatch_stats
 
 #: every status a RequestResult can carry; all are terminal.
 TERMINAL_STATUSES = (
@@ -144,10 +150,13 @@ class EngineConfig:
         TransientError (0 disables).
     breaker_threshold / breaker_cooldown_s : the circuit breaker's
         parameters, per (device, bucket).
-    serve_devices / lane_block : lane topology — None is one dispatch
-        per bucket; 1 runs fixed ``lane_block``-lane super-blocks on one
-        card; wider raises ``NotImplementedError`` (ROADMAP.md, queue 1
-        step 8 item 2).
+    serve_devices / lane_block : lane topology — None (the default) is
+        one dispatch per bucket; k or a device list is the lane mesh
+        (``buckets.serve_lane_devices``: k CPU workers, or the first k
+        cards, or the list itself, repeats allowed): each dispatch's
+        capacity is quantized to whole k x ``lane_block`` super-blocks,
+        whose k blocks run at once, one per worker.  The JAX package
+        defaults to every device on an accelerator.
     sweep_chunk : designs per sweep chunk (``submit_sweep``); 0 sizes a
         chunk so its lanes fill the top waterfall rung.
     preempt / preempt_age_s / preempt_block : priority preemption of
@@ -177,7 +186,7 @@ class EngineConfig:
     mixed_precision: bool = False
     fixed_point: str = "legacy"
     block_iters: int = None
-    serve_devices: int = None
+    serve_devices: object = None
     lane_block: int = None
     window_ms: float = 5.0
     node_quantum: int = 32
@@ -213,12 +222,6 @@ class EngineConfig:
         if self.fixed_point not in MODES:
             raise ValueError(f"fixed_point must be one of {MODES}, got "
                              f"{self.fixed_point!r}")
-        if self.serve_devices not in (None, 1):
-            from raft_tpu_torch.model import _not_ported
-
-            raise _not_ported(
-                f"a served lane mesh over {self.serve_devices} devices",
-                "8 item 2")
 
 
 @dataclasses.dataclass
@@ -548,7 +551,11 @@ class Engine:
         check_mode(cfg.fixed_point, cfg.mixed_precision)
         self.device = resolve_device(cfg.device)
         self._backend = self.device.type
-        self._lane_devices = cfg.serve_devices
+        self._lane_devices = serve_lane_devices(self.device,
+                                                cfg.serve_devices)
+        self._lane_workers = DeviceWorkers(
+            self._lane_devices, name="raft-serve-lane") \
+            if self._lane_devices else None
         self._lane_block = (int(cfg.lane_block) if cfg.lane_block
                             else DEFAULT_LANE_BLOCK)
         self.flags = current_flags(
@@ -1105,6 +1112,8 @@ class Engine:
                     "serve shutdown: batcher still busy after %.1fs; "
                     "force-resolving outstanding handles", timeout)
             self._finalize_outstanding()
+        if self._lane_workers is not None:
+            self._lane_workers.close(wait=False)
         if self._result_cache is not None:
             # persist the popularity ledger so the next process's
             # warm-handoff manifest sees this one's hit history
@@ -2061,11 +2070,12 @@ class Engine:
 
     def _dispatch_capacity(self, spec):
         """Lane capacity of one dispatch: the bucket's slot count,
-        quantized up to whole ``lane_block`` super-blocks on the
-        fixed-block path (the occupancy denominator)."""
+        quantized up to whole ``n_devices x lane_block`` super-blocks on
+        the lane mesh (the occupancy denominator: a wider mesh serves
+        proportionally larger megabatches)."""
         if not self._lane_devices:
             return spec.n_slots
-        G = self._lane_block
+        G = len(self._lane_devices) * self._lane_block
         return -(-max(spec.n_slots, G) // G) * G
 
     def _dispatch_guarded(self, physics, spec, members, lanes, breaker):
@@ -2099,7 +2109,8 @@ class Engine:
                         mode=cfg.fixed_point, block=cfg.block_iters,
                         mixed_precision=cfg.mixed_precision,
                         devices=self._lane_devices,
-                        lane_block=self._lane_block)
+                        lane_block=self._lane_block,
+                        workers=self._lane_workers)
 
                 # the profiler hook wraps the watched call: when armed
                 # exactly this window runs under torch.profiler capture,
@@ -2255,6 +2266,7 @@ class Engine:
                     return
                 inf["box"]["value"] = value
                 inf["box"]["error"] = err
+                inf["box"]["stats"] = last_dispatch_stats()
             inf["settled"].set()
 
         with self._watch_lock:
@@ -2272,6 +2284,9 @@ class Engine:
                 "watchdog budget (dispatch wall-clock-stuck)")
         if inf["box"]["error"] is not None:
             raise inf["box"]["error"]
+        # the dispatch's waterfall stats become this thread's, where the
+        # profiler hook reads them
+        _set_stats(inf["box"]["stats"])
         return inf["box"]["value"]
 
     def _watchdog_loop(self):
@@ -2414,7 +2429,12 @@ class Engine:
             # the lane topology the engine dispatches under
             "device": str(self.device),
             "fixed_point": self.config.fixed_point,
-            "serve_devices": 1,
+            "serve_devices": (len(self._lane_devices)
+                              if self._lane_devices else 1),
+            "mesh_width": (len(self._lane_devices)
+                           if self._lane_devices else 1),
+            "mesh_devices": ([str(d) for d in self._lane_devices]
+                             if self._lane_devices else None),
             "lane_block": (self._lane_block
                            if self._lane_devices else None),
             "mesh": "lane" if self._lane_devices else None,

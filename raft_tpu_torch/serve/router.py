@@ -5,9 +5,11 @@
 --http 0`` engine replicas and fronts them with the engine's own
 ``submit``/``probe``/``snapshot``/``shutdown`` surface, so the HTTP
 transport (serve/transport.py) serves a router exactly as it serves one
-engine.  On one card every replica is a process on that card (CUDA
-time-slices them); a device list naming more than one card raises
-(ROADMAP.md, queue 1 step 8 item 2).
+engine.  ``device`` may be a device list (``"cuda:0,cuda:1"``): replica
+i runs on entry i mod n, so a card belongs to the replicas placed on it
+(on one card every replica is a process on that card, and CUDA
+time-slices them).  A replica's own lane mesh is its engine's
+``serve_devices`` (``--serve-devices``).
 
 Placement keeps hot programs hot.  Requests hash by
 ``result_cache.routing_key(design, cases)``, a digest of the
@@ -212,21 +214,19 @@ def _repo_root():
         os.path.abspath(__file__))))
 
 
-def one_card(device):
-    """The single device of a replica fleet: ``device`` is one device
-    string or a list of them; a list naming more than one card raises
-    (placing replica i on card i is ROADMAP.md queue 1 step 8 item 2)."""
-    if device is None or isinstance(device, str) and "," not in device:
-        return device
+def replica_devices(device):
+    """The devices replicas are placed on, replica i on entry i mod n:
+    ``device`` is None (the default device), one device string, a
+    comma-separated list or a sequence of them (repeats allowed).  Each
+    entry is checked here (a card this host lacks raises)."""
+    from raft_tpu_torch.utils.placement import resolve_devices
+
+    if device is None:
+        return [None]
     devs = device.split(",") if isinstance(device, str) else list(device)
     devs = [str(d).strip() for d in devs if str(d).strip()]
-    if len(set(devs)) > 1:
-        from raft_tpu_torch.model import _not_ported
-
-        raise _not_ported(
-            f"replicas placed across the cards {devs} (every replica "
-            f"runs on one card)", "8 item 2")
-    return devs[0] if devs else None
+    resolve_devices(devs)
+    return devs
 
 
 def spawn_replica(replica_id, cache_dir=None, precision=None, device=None,
@@ -408,7 +408,8 @@ class Router:
 
     Every knob is an argument whose default is the JAX package's default:
     ``coalesce=False``, ``autoscale=False``, the result-cache view on
-    whenever ``cache_dir`` is given, ``chaos=None``.  ``device``,
+    whenever ``cache_dir`` is given, ``chaos=None``.  ``device`` (one
+    device, or a list: replica i on entry i mod n, :func:`replica_devices`),
     ``precision``, ``fixed_point``, ``window_ms``, ``warmup`` and
     ``preempt`` configure the spawned replicas (and the flag surface the
     router's cache view and handshake compare against)."""
@@ -447,7 +448,8 @@ class Router:
         from raft_tpu_torch.serve.cache import current_flags
         from raft_tpu_torch.utils.placement import resolve_device
 
-        device = one_card(device)
+        self._devices = replica_devices(device)
+        device = self._devices[0]
         self.cache_dir = str(cache_dir) if cache_dir else None
         self._precision = precision
         self._preempt = bool(preempt)
@@ -508,7 +510,7 @@ class Router:
         # spawn recipe kept for scale_out (None in attach mode: the
         # router does not own attached processes)
         self._spawn_kw = None if endpoints is not None else dict(
-            cache_dir=self.cache_dir, precision=precision, device=device,
+            cache_dir=self.cache_dir, precision=precision,
             window_ms=window_ms, warmup=warmup, fixed_point=fixed_point,
             preempt=self._preempt, extra_argv=replica_argv,
             env_overrides=env_overrides, ready_timeout_s=ready_timeout_s,
@@ -526,6 +528,7 @@ class Router:
             # wall clock instead of paying it N times in series
             with ThreadPoolExecutor(max_workers=max(1, n_replicas)) as ex:
                 futs = {f"r{i}": ex.submit(spawn_replica, f"r{i}",
+                                           device=self._replica_device(i),
                                            **self._spawn_kw)
                         for i in range(n_replicas)}
                 try:
@@ -1051,6 +1054,10 @@ class Router:
                     weights or "uniform")
         return out
 
+    def _replica_device(self, i):
+        """Replica i's device: entry i mod n of the device list."""
+        return self._devices[i % len(self._devices)]
+
     def scale_out(self):
         """Spawn one more replica and claim only its vnode arcs.  The
         popularity-ledger head goes to it as a ``--warm-handoff``
@@ -1063,8 +1070,9 @@ class Router:
             if self._stop:
                 raise RuntimeError("router is shut down")
             replica_id = f"r{self._next_replica}"
+            spawn_kw = dict(self._spawn_kw,
+                            device=self._replica_device(self._next_replica))
             self._next_replica += 1
-        spawn_kw = dict(self._spawn_kw)
         if self._result_cache is not None:
             path, shipped = self._result_cache.write_handoff(replica_id)
             if path is not None:

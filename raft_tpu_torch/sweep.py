@@ -19,10 +19,17 @@ The reference's parameter sweep is a serial loop of full model runs
    lanes get one bounded retry (:class:`SolveRetryPolicy`), adopted per
    lane only where it converges;
  - the chunk loop is software-pipelined: on the card, chunk k's solve
-   runs on a worker thread while the host prepares chunk k+1.
+   runs on a worker thread while the host prepares chunk k+1;
+ - over a device list (``device=["cuda:0", "cuda:1"]``, repeats allowed:
+   :func:`sweep_devices`) the chunks are dealt to one worker per entry
+   (``utils.placement.DeviceWorkers``), each chunk the single-device
+   program of ``chunk`` designs, so the results are the single-device
+   run's bits;
+ - across processes (:func:`initialize_distributed`) each rank solves
+   its share of the chunks on its own device list, every rank ends with
+   the full results (``torch.distributed`` over gloo), and rank 0 alone
+   writes the checkpoints.
 
-One CUDA device (or the CPU) is the supported case; more than one device
-raises ``NotImplementedError`` (ROADMAP.md, queue 1 step 8).
 ``via_buckets=True`` dispatches the dynamics through the serving
 buckets (raft_tpu_torch/sweep_buckets.py).
 
@@ -38,7 +45,6 @@ import itertools
 import os
 import time
 import zipfile
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,23 +52,67 @@ import torch
 from raft_tpu_torch.batched_prep import PrepFamily, PrepFamilyError
 from raft_tpu_torch.geometry import HydroNodes
 from raft_tpu_torch.health import FailedPoint, SolveReport
-from raft_tpu_torch.model import Model, _not_ported, make_case_dynamics
+from raft_tpu_torch.model import Model, make_case_dynamics
 from raft_tpu_torch.resilience import SolveRetryPolicy
 from raft_tpu_torch.sweep_buckets import grouped_sweep_pipeline
-from raft_tpu_torch.utils.placement import resolve_device
+from raft_tpu_torch.utils.placement import DeviceWorkers, resolve_devices
 from raft_tpu_torch.utils.profiling import logger
 from raft_tpu_torch.waterfall import check_mode, grouped_waterfall_pipeline
 
 
-def sweep_device(device):
-    """The one device a sweep runs on: ``device`` may be a device, a name
-    or a sequence of them (the JAX package's device mesh); ``cuda`` by
-    default.  More than one device raises ``NotImplementedError``."""
-    if isinstance(device, (list, tuple)):
-        if len(device) != 1:
-            raise _not_ported(f"a sweep over {len(device)} devices", 8)
-        device = device[0]
-    return resolve_device(device)
+def sweep_devices(devices=None):
+    """The device list a sweep deals its work to (the JAX package's
+    ``make_sweep_mesh``): a device, a name, a comma-separated string, a
+    sequence of them (repeats allowed: ``["cpu"] * 2`` is two CPU
+    workers, ``["cuda:0"] * 2`` two streams on one card) or N for the
+    first N cards; ``cuda`` by default.  A card the host lacks raises.
+    Across processes each rank passes its own list."""
+    return resolve_devices(devices)
+
+
+def initialize_distributed(coordinator=None, num_processes=None,
+                           process_id=None, timeout_s=600.0):
+    """Join a ``torch.distributed`` process group so a sweep spans
+    processes (the JAX package's ``jax.distributed`` pool); returns
+    ``(rank, world_size)`` as the JAX package returns ``(process_index,
+    process_count)``.
+
+    coordinator : ``"host:port"`` of rank 0 (``tcp://``), or an init URL
+        (``tcp://...``, ``file://...``); None leaves the rendezvous to
+        ``torch.distributed``'s own ``env://`` defaults.
+    num_processes, process_id : the world size and this process's rank.
+
+    The group is gloo: what crosses ranks is each rank's chunk results as
+    host arrays (the JAX package allgathers them to NumPy on every host),
+    so it runs on the CPU and with several ranks on one card, where NCCL
+    refuses a repeated GPU.  A second call returns the group already
+    joined."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        url = "env://" if coordinator is None else (
+            coordinator if "://" in coordinator else f"tcp://{coordinator}")
+        kw = {}
+        if num_processes is not None:
+            kw["world_size"] = int(num_processes)
+        if process_id is not None:
+            kw["rank"] = int(process_id)
+        dist.init_process_group(
+            "gloo", init_method=url,
+            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _process():
+    """``(rank, world_size)`` of this process's group, (0, 1) outside
+    one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def grid_points(axes):
@@ -170,22 +220,23 @@ def default_collect(model, point, Xi):
     }
 
 
-def _load_checkpoint(ck_path):
+def _load_checkpoint(ck_path, discard=True):
     """A chunk checkpoint's arrays, or None to recompute.
 
     A corrupt, truncated or incomplete checkpoint (a crash mid-write in
     an older run, disk trouble, a stray file) is deleted with a logged
-    reason and the chunk recomputed, never trusted."""
+    reason (with ``discard``) and the chunk recomputed, never trusted."""
     if ck_path is None or not os.path.exists(ck_path):
         return None
 
     def _discard(reason):
         logger.warning("sweep checkpoint %s %s; deleting it and "
                        "recomputing the chunk", ck_path, reason)
-        try:
-            os.remove(ck_path)
-        except OSError:
-            pass
+        if discard:
+            try:
+                os.remove(ck_path)
+            except OSError:
+                pass
         return None
 
     try:
@@ -198,6 +249,51 @@ def _load_checkpoint(ck_path):
         return _discard("is missing the required result arrays "
                         "(incomplete write or foreign file)")
     return data
+
+
+def _load_checkpoints(ck_paths, rank, world):
+    """``{chunk: arrays}`` of the chunks to load instead of recompute.
+
+    Across processes the decision is rank 0's, broadcast, so every rank
+    takes the same chunks (the JAX package's ``_load_checkpoint`` rule):
+    rank 0 loads (and deletes a corrupt file), then every other rank
+    loads the chunks rank 0 took, and raises when it cannot see one (a
+    multi-process sweep needs ``out_dir`` on a filesystem every rank
+    sees)."""
+    if world == 1 or rank == 0:
+        data = {}
+        for k, path in enumerate(ck_paths):
+            d = _load_checkpoint(path)
+            if d is not None:
+                data[k] = d
+        if world == 1:
+            return data
+    import torch.distributed as dist
+
+    box = [sorted(data) if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    if rank == 0:
+        return data
+    data = {}
+    for k in box[0]:
+        data[k] = _load_checkpoint(ck_paths[k], discard=False)
+        if data[k] is None:
+            raise RuntimeError(
+                f"sweep checkpoint {ck_paths[k]} loads on rank 0 but not on "
+                f"rank {rank}: a multi-process sweep needs out_dir on a "
+                "filesystem every rank sees")
+    return data
+
+
+def _on_device(model, dev):
+    """``model`` with its working device set to ``dev`` (a shallow copy
+    when it differs): what a worker on another card builds its pipeline
+    from."""
+    if model.device == dev:
+        return model
+    m = copy.copy(model)
+    m.device = dev
+    return m
 
 
 # SolveReport fields as flat result/checkpoint keys, with the fill value
@@ -251,16 +347,6 @@ def _masked_row_fill(template, fill):
     return np.full(t.shape, fill, t.dtype)
 
 
-class _Done:
-    """A result already computed, with the ``result()`` of a future."""
-
-    def __init__(self, value):
-        self.value = value
-
-    def result(self):
-        return self.value
-
-
 def run_sweep(base_design, points, apply_point, device=None, precision=None,
               out_dir=None, collect=default_collect, verbose=True,
               retry_nonconverged=True, overlap=True, via_buckets=None,
@@ -281,8 +367,9 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
         Mutates/returns a deep copy of the base design for one point (the
         reference's dependent-geometry update, parametersweep.py:60-100).
     device : the working device (``cuda`` by default; ``"cpu"``), or a
-        sequence of devices, of which more than one raises
-        ``NotImplementedError`` (ROADMAP.md, queue 1 step 8)
+        device list (:func:`sweep_devices`; repeats allowed): the chunks
+        are dealt to one worker per entry, each chunk the single-device
+        program, so the results are the single-device run's bits.
     out_dir : str | None
         Checkpoint directory; chunk k's results live in
         ``chunk_{k:04d}.npz`` and are loaded instead of recomputed on a
@@ -314,6 +401,15 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
         does a family whose base design has wind cases) is prepared
         solo.  The JAX package switches it by an environment variable.
 
+    In a process group (:func:`initialize_distributed`) every rank calls
+    this with the same points: each solves its share of the chunks (the
+    chunks left to do, dealt round-robin over the ranks) on its own
+    device list, of any length, every rank returns the full results,
+    and rank 0 alone writes the checkpoints, each rank's chunks once
+    they are gathered.  ``via_buckets``, the waterfall and fused engines
+    and ``overlap`` raise ``ValueError`` there (the JAX package drops
+    them quietly): pass ``overlap=False``.
+
     Returns
     -------
     dict of stacked result arrays, leading axis len(points): ``Xi``
@@ -324,15 +420,30 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
     ``n_prep_batched`` and ``n_prep_solo`` count the designs each prep
     path took (checkpointed chunks count in neither).
     """
-    dev = sweep_device(device)
+    devs = sweep_devices(device)
+    dev = devs[0]
     check_mode(fixed_point)
+    rank, world = _process()
+    if world > 1:
+        dropped = [name for name, on in (
+            ("via_buckets", via_buckets), ("overlap", overlap),
+            (f"fixed_point={fixed_point!r}", fixed_point != "legacy"))
+            if on]
+        if dropped:
+            raise ValueError(
+                f"run_sweep across {world} processes runs the legacy "
+                f"serial chunk loop; {', '.join(dropped)} is not supported "
+                "there (pass overlap=False)")
     retry_policy = SolveRetryPolicy.from_flag(retry_nonconverged)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     npoints = len(points)
     chunk = max(1, int(chunk))
-    background = bool(overlap) and dev.type == "cuda"
-    pool = ThreadPoolExecutor(max_workers=1) if background else None
+    n_dev = len(devs)
+    # chunks in flight before the oldest is finalized: one per worker,
+    # and with the overlap on the card one more, prepared ahead
+    depth = n_dev - 1 + int(bool(overlap) and all(
+        d.type == "cuda" for d in devs))
     records = {}  # chunk index -> dict(res | None, failed, n_real, k0)
     prep_wall_s = 0.0
     n_batched = n_solo = 0
@@ -345,7 +456,7 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
                            "prep", e)
 
     def _write_ck(ck_path, res, failed):
-        if not ck_path:
+        if not ck_path or rank != 0:
             return
         # write, then rename: a crash mid-write never leaves a truncated
         # chunk that would poison the restart
@@ -359,14 +470,31 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
         np.savez(tmp_path, **save)
         os.replace(tmp_path, ck_path)
 
+    def _solve(w, m0, preps, slot, pipeline):
+        """On worker ``w``: the chunk's operands on its device, the first
+        solve, fetched to the host; returns (sol, operands, model)."""
+        d = devs[w]
+        m = _on_device(m0, d)
+        nodes_b = pad_and_stack_nodes(
+            [preps[s][1] for s in slot]).to(d, m.dtype)
+        args_b = tuple(
+            torch.as_tensor(np.stack([preps[s][2][i] for s in slot]),
+                            device=d, dtype=m.dtype)
+            for i in range(len(preps[slot[0]][2])))
+        dev_in = (nodes_b,) + args_b
+        return _fetch_solve(*pipeline(m)(*dev_in)), dev_in, m
+
+    def _retry(m, dev_in, nIter2, relax2):
+        return _fetch_solve(*_sweep_pipeline(m, nIter2, relax2)(*dev_in))
+
     def _finalize(ctx):
         """The blocking tail of one dispatched chunk: fetch, bounded
         retry, quarantine masking, metrics, checkpoint."""
         k, k0 = ctx["k"], ctx["k0"]
         chunk_pts, n_real = ctx["chunk_pts"], len(ctx["chunk_pts"])
         preps, failed, valid = ctx["preps"], ctx["failed"], ctx["valid"]
-        ok, m0, dev_in = ctx["ok"], ctx["m0"], ctx["dev_in"]
-        sol = _fetch_solve(*ctx["raw"].result())
+        ok = ctx["ok"]
+        sol, dev_in, m0 = ctx["raw"].result()
         if tracer is not None:
             tracer.end(ctx["span"])
 
@@ -376,8 +504,8 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
         sol["retried"] = np.zeros_like(retry_mask)
         if retry_policy.enabled and retry_mask.any():
             nIter2, relax2 = retry_policy.escalate(m0.nIter)
-            sol2 = _fetch_solve(*_sweep_pipeline(m0, nIter2, relax2)(
-                *dev_in))
+            sol2 = workers.submit(ctx["w"], _retry, m0, dev_in, nIter2,
+                                  relax2).result()
             use = retry_mask & sol2["converged"]
             for key in ("Xi_r", "Xi_i"):
                 sol[key] = np.where(use[:, :, None, None], sol2[key],
@@ -425,35 +553,41 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
         records[k] = {"res": res, "failed": failed, "n_real": n_real,
                       "k0": k0}
 
-    inflight = None
-    try:
-        for k0 in range(0, npoints, chunk):
-            k = k0 // chunk
-            ck_path = os.path.join(out_dir, f"chunk_{k:04d}.npz") \
-                if out_dir else None
+    n_chunks = -(-npoints // chunk)
+    ck_paths = [os.path.join(out_dir, f"chunk_{k:04d}.npz") if out_dir
+                else None for k in range(n_chunks)]
+    for k, loaded in _load_checkpoints(ck_paths, rank, world).items():
+        k0 = k * chunk
+        chunk_pts = points[k0:k0 + chunk]
+        fidx = loaded.pop("_failed_idx", None)
+        fmsg = loaded.pop("_failed_msg", None)
+        failed = [
+            (int(i), chunk_pts[int(i) - k0], str(m))
+            for i, m in zip(
+                np.atleast_1d(fidx) if fidx is not None else [],
+                np.atleast_1d(fmsg) if fmsg is not None else [])]
+        res = None if loaded.pop("_all_failed", None) is not None \
+            else loaded
+        records[k] = {"res": res, "failed": failed,
+                      "n_real": len(chunk_pts), "k0": k0}
+        if verbose:
+            logger.info("sweep chunk %d: loaded checkpoint (%d designs)",
+                        k, len(chunk_pts))
+    # the chunks left to do, dealt round-robin over the ranks by a rule
+    # every rank computes alike (whatever each rank's device list), then
+    # each rank deals its own over its workers
+    mine = [k for k in range(n_chunks) if k not in records][rank::world]
+
+    inflight = []
+    with DeviceWorkers(devs, name="raft-sweep") as workers:
+        for j, k in enumerate(mine):
+            k0 = k * chunk
+            ck_path = ck_paths[k]
             chunk_pts = points[k0:k0 + chunk]
             n_real = len(chunk_pts)
 
-            loaded = _load_checkpoint(ck_path)
-            if loaded is not None:
-                fidx = loaded.pop("_failed_idx", None)
-                fmsg = loaded.pop("_failed_msg", None)
-                failed = [
-                    (int(i), chunk_pts[int(i) - k0], str(m))
-                    for i, m in zip(
-                        np.atleast_1d(fidx) if fidx is not None else [],
-                        np.atleast_1d(fmsg) if fmsg is not None else [])]
-                res = None if loaded.pop("_all_failed", None) is not None \
-                    else loaded
-                records[k] = {"res": res, "failed": failed,
-                              "n_real": n_real, "k0": k0}
-                if verbose:
-                    logger.info("sweep chunk %d: loaded checkpoint (%d "
-                                "designs)", k, n_real)
-                continue
-
-            # host prep; with overlap it runs while the previous chunk's
-            # solve is in flight
+            # host prep; with overlap it runs while earlier chunks' solves
+            # are in flight
             t_prep = time.perf_counter()
             span = tracer.begin("prep", backend="cpu", chunk=k) \
                 if tracer is not None else None
@@ -466,7 +600,7 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
                 tracer.end(span, designs=n_real, batched_designs=nb)
             prep_wall_s += time.perf_counter() - t_prep
 
-            ok = [j for j in range(n_real) if preps[j] is not None]
+            ok = [i for i in range(n_real) if preps[i] is not None]
             if not ok:
                 _write_ck(ck_path, None, failed)
                 records[k] = {"res": None, "failed": failed,
@@ -477,45 +611,55 @@ def run_sweep(base_design, points, apply_point, device=None, precision=None,
             # the ragged tail carry the chunk's first healthy design to
             # keep the batch shape, and ``valid`` masks them out
             fill = ok[0]
-            slot = [j if (j < n_real and preps[j] is not None) else fill
-                    for j in range(chunk)]
-            valid = np.array([j < n_real and preps[j] is not None
-                              for j in range(chunk)])
+            slot = [i if (i < n_real and preps[i] is not None) else fill
+                    for i in range(chunk)]
+            valid = np.array([i < n_real and preps[i] is not None
+                              for i in range(chunk)])
             m0 = preps[fill][0]
-            nodes_b = pad_and_stack_nodes(
-                [preps[s][1] for s in slot]).to(dev, m0.dtype)
-            args_b = tuple(
-                torch.as_tensor(np.stack([preps[s][2][i] for s in slot]),
-                                device=dev, dtype=m0.dtype)
-                for i in range(len(preps[fill][2])))
-            dev_in = (nodes_b,) + args_b
             if via_buckets:
-                pipeline = grouped_sweep_pipeline(
-                    m0, mode=fixed_point, block=block_iters)
+                def pipeline(m):
+                    return grouped_sweep_pipeline(
+                        m, mode=fixed_point, block=block_iters)
             elif fixed_point == "legacy":
-                pipeline = _sweep_pipeline(m0, m0.nIter, 0.8)
+                def pipeline(m):
+                    return _sweep_pipeline(m, m.nIter, 0.8)
             else:
-                pipeline = grouped_waterfall_pipeline(
-                    m0, kernel=fixed_point == "fused", block=block_iters)
-            dspan = tracer.begin("dynamics", backend=dev.type, chunk=k) \
+                def pipeline(m):
+                    return grouped_waterfall_pipeline(
+                        m, kernel=fixed_point == "fused", block=block_iters)
+            w = j % n_dev
+            dspan = tracer.begin("dynamics", backend=devs[w].type, chunk=k) \
                 if tracer is not None else None
-            raw = pool.submit(pipeline, *dev_in) if background \
-                else _Done(pipeline(*dev_in))
-            ctx = dict(k=k, k0=k0, ck_path=ck_path, chunk_pts=chunk_pts,
-                       preps=preps, failed=failed, valid=valid, ok=ok,
-                       m0=m0, dev_in=dev_in, raw=raw, span=dspan)
-            if inflight is not None:
-                _finalize(inflight)       # blocks on the previous chunk
-            inflight = ctx
-            if not overlap:
-                _finalize(inflight)
-                inflight = None
-        if inflight is not None:
-            _finalize(inflight)
-    finally:
-        if pool is not None:
-            pool.shutdown(wait=True)
-    chunk_records = [records[k] for k in sorted(records)]
+            raw = workers.submit(w, _solve, w, m0, preps, slot, pipeline)
+            inflight.append(dict(
+                k=k, k0=k0, ck_path=ck_path, chunk_pts=chunk_pts,
+                preps=preps, failed=failed, valid=valid, ok=ok, w=w,
+                raw=raw, span=dspan))
+            while len(inflight) > depth:
+                _finalize(inflight.pop(0))   # blocks on the oldest chunk
+        while inflight:
+            _finalize(inflight.pop(0))
+    if world > 1:
+        import torch.distributed as dist
+
+        gathered = [None] * world
+        dist.all_gather_object(gathered, (
+            {k: records[k] for k in mine}, prep_wall_s, n_batched, n_solo))
+        prep_wall_s = n_batched = n_solo = 0
+        for r, (recs, pw, nb, ns) in enumerate(gathered):
+            prep_wall_s += pw
+            n_batched += nb
+            n_solo += ns
+            if r == rank:
+                continue
+            records.update(recs)
+            for k, rec in recs.items():
+                _write_ck(ck_paths[k], rec["res"], rec["failed"])
+    missing = sorted(set(range(n_chunks)) - set(records))
+    if missing:
+        raise RuntimeError(f"run_sweep: chunks {missing} were solved by no "
+                           "rank")
+    chunk_records = [records[k] for k in range(n_chunks)]
 
     proto = next((r["res"] for r in chunk_records if r["res"] is not None),
                  None)

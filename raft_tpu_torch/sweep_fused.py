@@ -31,8 +31,13 @@ host computes the next chunk's rotor loads (the case-axis overlap).
 statics and added mass in lane blocks on the card
 (raft_tpu_torch/batched_prep.py).  ``via_buckets=True`` dispatches the
 dynamics through the serving buckets (raft_tpu_torch/sweep_buckets.py).
-More than one device raises ``NotImplementedError`` naming its ROADMAP.md
-step.
+Over a device list (``device=["cuda:0", "cuda:1"]``, repeats allowed) the
+first solve of each draft group is split along the group's design axis,
+one shard per worker (``utils.placement.DeviceWorkers``), as the JAX
+package shards it over its design mesh; a lane's arithmetic does not
+depend on the lanes beside it, so the results are the single-device
+sweep's bits.  ``host_devices`` gives the rotor's second pass that many
+host workers (``aero.Rotor.run_bem_batch``).
 """
 
 import copy
@@ -57,10 +62,14 @@ from raft_tpu_torch.mooring import (
 )
 from raft_tpu_torch.resilience import SolveRetryPolicy
 from raft_tpu_torch.statics import compute_statics
-from raft_tpu_torch.sweep import _Done, pad_and_stack_nodes, sweep_device
+from raft_tpu_torch.sweep import _on_device, pad_and_stack_nodes, sweep_devices
 from raft_tpu_torch.sweep_buckets import fused_bucket_pipeline
 from raft_tpu_torch.trace import Tracer
-from raft_tpu_torch.utils.placement import HOST_DTYPE, host_threads
+from raft_tpu_torch.utils.placement import (
+    HOST_DTYPE,
+    DeviceWorkers,
+    host_threads,
+)
 from raft_tpu_torch.utils.profiling import logger
 from raft_tpu_torch.waterfall import (
     _map_nodes,
@@ -185,6 +194,7 @@ def _blank_rotor_telemetry():
         "bracketed_sample_s": 0.0,
         "guided_batch_s": 0.0,
         "direct_fallback_s": 0.0,
+        "rotor_host_devices": 0,     # host workers of the last rotor batch
     }
 
 
@@ -218,6 +228,7 @@ def _guided_rotor_eval(rotor, U_case, yaw_case, pitch_dc, telemetry=None):
             pitch_dc.ravel(),
             np.broadcast_to(yaw_case[None], (nd, nwind)).ravel())
         tel["small_batch_lanes"] += nd * nwind
+        tel["rotor_host_devices"] = rotor.last_batch_info["n_devices"]
         tel["direct_fallback_s"] += time.perf_counter() - t0
         return vals.reshape(nd, nwind, 10), J.reshape(nd, nwind, 10, 3)
 
@@ -260,6 +271,7 @@ def _guided_rotor_eval(rotor, U_case, yaw_case, pitch_dc, telemetry=None):
         U_g, pitch_g, yaw_g, phi0=phi0_g, return_phi=True,
         return_resid=True)
     tel["guided_batch_s"] += time.perf_counter() - t0
+    tel["rotor_host_devices"] = rotor.last_batch_info["n_devices"]
     vals = vals_g[:nd * nwind].reshape(nwind, nd, 10).copy()
     J = J_g[:nd * nwind].reshape(nwind, nd, 10, 3).copy()
     pv = vals_g[nd * nwind:].reshape(nwind, P, 10)
@@ -440,11 +452,33 @@ def _overlap_case_chunks(wind, aero_on, overlap):
     return chunks
 
 
+def _args_to(args, dev):
+    """The pipeline operands ``(nodes_g, zeta, beta, C_g, M0_g, a_g,
+    b_g)`` on ``dev`` (the same tensors where they are there already)."""
+    nodes_g, *rest = args
+    return (_map_nodes(lambda a: a.to(dev), nodes_g),
+            *(a.to(dev) for a in rest))
+
+
+def _shard_operands(args, n):
+    """The pipeline operands cut into ``n`` shards along the groups'
+    design axis (axis 1 of the group operands; ``zeta`` and ``beta``
+    whole): the JAX package's ``P(None, "design")`` placement.  The
+    sweeps have checked that ``n`` divides a group
+    (:func:`_check_sweep_args`)."""
+    nodes_g, zeta, beta, *grouped = args
+    w = grouped[0].shape[1] // n
+    sl = [slice(i * w, (i + 1) * w) for i in range(n)]
+    return [(_map_nodes(lambda a, s=s: a[:, s], nodes_g), zeta, beta,
+             *(a[:, s] for a in grouped)) for s in sl]
+
+
 def _chunked_aero_dynamics(model0, cases, wind, aero_on, pitch_mean,
                            make_dev_args, nd_aero, nd_flat, return_xi,
                            retry_nonconverged, label, tracer,
                            overlap="auto", fixed_point="legacy",
-                           block_iters=None, via_buckets=False):
+                           block_iters=None, via_buckets=False,
+                           devices=None):
     """The rotor second pass -> dynamics hand-off, split along the
     wind-case axis (:func:`_overlap_case_chunks`).  On the card each
     chunk's dynamics runs on a worker thread, so it overlaps the host's
@@ -452,7 +486,10 @@ def _chunked_aero_dynamics(model0, cases, wind, aero_on, pitch_mean,
     path.
 
     make_dev_args(case_idx, a_sub, b_sub) builds the pipeline operands on
-    the device for that case subset.
+    the device for that case subset.  The first solve of every chunk is
+    split along the groups' design axis into one shard per entry of
+    ``devices`` (:func:`_shard_operands`; one entry, one shard), shard i
+    on worker i.
 
     Returns (sol, a_hub, b_hub, F_aero2, telemetry, timing, stats): sol
     the merged [nd_flat, nc] results with the bounded retry applied,
@@ -467,23 +504,52 @@ def _chunked_aero_dynamics(model0, cases, wind, aero_on, pitch_mean,
     a_hub = np.zeros((nd_aero, nc, nw))
     b_hub = np.zeros((nd_aero, nc, nw))
     F_aero2 = np.zeros((nd_aero, nc, 6))
-    if via_buckets:
-        pipeline = fused_bucket_pipeline(model0, return_xi,
-                                         mode=fixed_point,
+
+    def make_pipeline(m):
+        if via_buckets:
+            return fused_bucket_pipeline(m, return_xi, mode=fixed_point,
                                          block=block_iters)
-    elif fixed_point == "legacy":
-        pipeline = _dynamics_pipeline(model0, return_xi)
-    else:
-        pipeline = fused_waterfall_pipeline(
-            model0, return_xi, kernel=fixed_point == "fused",
-            block=block_iters)
+        if fixed_point == "legacy":
+            return _dynamics_pipeline(m, return_xi)
+        return fused_waterfall_pipeline(
+            m, return_xi, kernel=fixed_point == "fused", block=block_iters)
+
+    devs = tuple(devices) if devices else (model0.device,)
+    pipelines = {}
+    for d in devs:
+        if d not in pipelines:
+            pipelines[d] = make_pipeline(
+                model0 if d == devs[0] else _on_device(model0, d))
     backend = model0.device.type
     pool = ThreadPoolExecutor(max_workers=1) if backend == "cuda" else None
+    workers = DeviceWorkers(devs, name="raft-sweep-shard")
+
+    def solve_one(d, args, n_flat, ncc):
+        """One pipeline call on ``d``: the host arrays and the engine
+        stats of this thread's dispatch."""
+        args = _args_to(args, d)
+        dyn = pipelines[d](*args)
+        stats = None if fixed_point == "legacy" else last_dispatch_stats()
+        return _unpack_dyn(dyn, n_flat, ncc, return_xi, nw), stats
 
     def solve(ci, dev_args, h):
-        dyn = pipeline(*dev_args)
-        stats = None if fixed_point == "legacy" else last_dispatch_stats()
-        part = _unpack_dyn(dyn, nd_flat, len(ci), return_xi, nw)
+        shards = _shard_operands(dev_args, len(devs))
+        G = dev_args[3].shape[0]
+        futs = [workers.submit(i, solve_one, devs[i], sh,
+                               nd_flat // len(devs), len(ci))
+                for i, sh in enumerate(shards)]
+        outs = [f.result() for f in futs]
+        # shard i holds designs [i gd/n, (i+1) gd/n) of every group: back
+        # to the groups' design-major order
+        part = {key: np.concatenate(
+            [o[0][key].reshape((G, -1) + o[0][key].shape[1:])
+             for o in outs], axis=1).reshape(
+                 (nd_flat,) + outs[0][0][key].shape[1:])
+            for key in outs[0][0]}
+        stats = None
+        if fixed_point != "legacy":
+            _merge_stats([o[1] for o in outs])
+            stats = last_dispatch_stats()
         tracer.end(h)
         return part, stats
 
@@ -507,17 +573,20 @@ def _chunked_aero_dynamics(model0, cases, wind, aero_on, pitch_mean,
             dev_args = make_dev_args(ci, a_hub[:, ci], b_hub[:, ci])
             h = tracer.begin("dynamics", backend=backend, chunk=k,
                              cases=len(ci))
-            fut = pool.submit(solve, ci, dev_args, h) if pool is not None \
-                else _Done(solve(ci, dev_args, h))
-            inflight.append((ci, dev_args, fut))
+            if pool is not None:
+                out = pool.submit(solve, ci, dev_args, h)
+            else:
+                out = solve(ci, dev_args, h)
+            inflight.append((ci, dev_args, out))
         parts, stats = [], []
-        for ci, _, fut in inflight:
-            part, st = fut.result()
+        for ci, _, out in inflight:
+            part, st = out.result() if pool is not None else out
             parts.append((ci, part))
             stats.append(st)
     finally:
         if pool is not None:
             pool.shutdown(wait=True)
+        workers.close()
     t_engine = time.perf_counter() - t_engine0
     if fixed_point != "legacy":
         _merge_stats(stats)
@@ -653,9 +722,15 @@ def _design_mooring(F_prp, nc, mass, V, rCG, rM, AWP, moor, bridles, model0):
     return tuple(o.detach().numpy()[:, inv].copy() for o in out)
 
 
-def _check_sweep_args(device, fixed_point):
+def _check_sweep_args(device, fixed_point, group):
+    """The sweep's device list; its length must divide the designs of a
+    group (the JAX package's rule for its design mesh)."""
     check_mode(fixed_point)
-    return sweep_device(device)
+    devs = sweep_devices(device)
+    if group % len(devs):
+        raise ValueError(f"a group of {group} designs does not divide over "
+                         f"the {len(devs)} devices {list(map(str, devs))}")
+    return devs
 
 
 def run_draft_ballast_sweep(
@@ -663,7 +738,7 @@ def run_draft_ballast_sweep(
     draft_group=4, return_xi=False, verbose=True, device=None,
     retry_nonconverged=True, overlap="auto", tracer=None, via_buckets=None,
     fixed_point="legacy", block_iters=None, trace_path=None,
-    batched_prep=False,
+    batched_prep=False, host_devices=1,
 ):
     """The fused draft x ballast sweep.
 
@@ -681,9 +756,13 @@ def run_draft_ballast_sweep(
     draft_group : drafts per dynamics dispatch (bounds device memory:
         draft_group x nB x cases lanes live at once).
     return_xi : also return the response amplitudes [nD, nB, nc, 6, nw].
-    device : the working device (``cuda`` by default; ``"cpu"``); a
-        sequence of more than one raises ``NotImplementedError``
-        (ROADMAP.md, queue 1 step 8).
+    device : the working device (``cuda`` by default; ``"cpu"``), or a
+        device list (``sweep.sweep_devices``; repeats allowed) whose
+        length divides ``draft_group``: each draft group's designs are
+        split over it, with the single-device sweep's bits.
+    host_devices : host workers of the rotor's second pass
+        (``aero.Rotor.run_bem_batch``; 1 evaluates a batch as one
+        program), reported as ``rotor_telemetry["rotor_host_devices"]``.
     overlap : 'auto' | True | False — the case-axis overlap of the rotor
         and the dynamics (:func:`_chunked_aero_dynamics`); only True
         chunks (:func:`_overlap_case_chunks`).
@@ -711,10 +790,12 @@ def run_draft_ballast_sweep(
             "one variant per draft, and the JAX package's batched prep "
             "serves run_design_sweep and run_sweep only (ROADMAP.md, queue "
             "3 item 11)")
-    dev = _check_sweep_args(device, fixed_point)
+    devs = _check_sweep_args(device, fixed_point, draft_group)
+    dev = devs[0]
     t_start = time.perf_counter()
     tracer = tracer or Tracer("fused_sweep")
-    model0 = Model(base_design, precision=precision, device=dev)
+    model0 = Model(base_design, precision=precision, device=dev,
+                   host_devices=host_devices)
     nD, nB = len(draft_scales), len(ballast_scales)
     nd = nD * nB
     if nD % draft_group:
@@ -825,7 +906,8 @@ def run_draft_ballast_sweep(
             model0, cases, wind, aero_on, r6[:, :, 4], make_dev_args, nd,
             nd, return_xi, retry_nonconverged, f"fused sweep {nD}x{nB}",
             tracer, overlap=overlap, fixed_point=fixed_point,
-            block_iters=block_iters, via_buckets=bool(via_buckets))
+            block_iters=block_iters, via_buckets=bool(via_buckets),
+            devices=devs)
     std = sol["std"]
 
     # ---- metrics (the reference sweep's getOutputs,
@@ -974,7 +1056,7 @@ def run_design_sweep(
     trim_ballast_density=False, verbose=True, device=None,
     retry_nonconverged=True, overlap="auto", tracer=None, via_buckets=None,
     fixed_point="legacy", block_iters=None, trace_path=None,
-    batched_prep=False,
+    batched_prep=False, host_devices=1,
 ):
     """Fused sweep over a list of design dicts (the general form of the
     reference's 5-parameter geometry study, raft/parametersweep.py:56-100):
@@ -987,7 +1069,8 @@ def run_design_sweep(
         per design (the affine equivalent of
         ``Model.adjust_ballast_density``), reported as ``delta_rho``.
     device, overlap, tracer, trace_path, fixed_point, block_iters,
-    via_buckets : as in :func:`run_draft_ballast_sweep`.
+    via_buckets, host_devices : as in :func:`run_draft_ballast_sweep`
+        (a device list divides the group, ``min(group, nd)`` designs).
     batched_prep : the geometry, statics and added mass of the designs
         through one :class:`raft_tpu_torch.batched_prep.PrepFamily` of
         ``designs[0]`` (lane blocks on the working device) instead of a
@@ -1001,11 +1084,13 @@ def run_design_sweep(
     ``n_prep_batched`` and ``n_prep_solo``, the designs each prep path
     took.
     """
-    dev = _check_sweep_args(device, fixed_point)
+    nd = len(designs)
+    devs = _check_sweep_args(device, fixed_point, min(group, nd))
+    dev = devs[0]
     t_start = time.perf_counter()
     tracer = tracer or Tracer("design_sweep")
-    model0 = Model(designs[0], precision=precision, device=dev)
-    nd = len(designs)
+    model0 = Model(designs[0], precision=precision, device=dev,
+                   host_devices=host_devices)
 
     cases = cases_as_dicts(designs[0])
     spec, height, period, beta, wind = model0._case_arrays(cases)
@@ -1134,7 +1219,8 @@ def run_design_sweep(
             model0, cases, wind, aero_on, r6[:, :, 4], make_dev_args, nd,
             nd_pad, return_xi, retry_nonconverged, f"design sweep x{nd}",
             tracer, overlap=overlap, fixed_point=fixed_point,
-            block_iters=block_iters, via_buckets=bool(via_buckets))
+            block_iters=block_iters, via_buckets=bool(via_buckets),
+            devices=devs)
 
     res = {
         "mass": mass_all,

@@ -166,7 +166,7 @@ def checked_pipeline(model):
 
 def full_hull_convergence(design_path, backend="cuda", sizes=(2.0, 1.5),
                           nw=8, w_lo=0.25, w_hi=0.9, n_devices=None,
-                          device=None):
+                          device=None, devices=None):
     """Two-mesh potential-flow convergence study of a full hull — the
     flagship VolturnUS-S verification anchor (no published IEA-15MW
     potential-flow tables ship with the reference mirror, so the solve is
@@ -175,7 +175,8 @@ def full_hull_convergence(design_path, backend="cuda", sizes=(2.0, 1.5),
     ``backend`` and ``device`` are those of
     :func:`raft_tpu_torch.bem_solver.solve_bem`: the card form on
     ``cuda`` by default (its blocked Gauss–Jordan through the tile_inv,
-    mm and mm_sub kernels); ``n_devices`` > 1 raises.
+    mm and mm_sub kernels); ``n_devices`` / ``devices`` shard the
+    frequencies over a device list.
 
     Returns (sols, rel_A, rel_X) — the two solve dicts keyed
     "fine"/"xfine", the per-DOF max relative A-diagonal difference [6],
@@ -199,7 +200,8 @@ def full_hull_convergence(design_path, backend="cuda", sizes=(2.0, 1.5),
         panels = mesh_platform(mem, dz_max=sz, da_max=sz)
         sols[tag] = solve_bem(panels, w, rho=m.rho_water, g=m.g,
                               backend=backend, depth=m.depth,
-                              n_devices=n_devices, device=device)
+                              n_devices=n_devices, device=device,
+                              devices=devices)
     Af, Ax = sols["fine"]["A"], sols["xfine"]["A"]
     rel_A = [
         float(np.max(np.abs(Af[:, i, i] - Ax[:, i, i])

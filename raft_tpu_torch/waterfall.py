@@ -41,6 +41,7 @@ bit-identical.
 
 import dataclasses
 import functools
+import threading
 import time
 
 import numpy as np
@@ -201,16 +202,18 @@ class SuspendedWaterfall:
         return int((self.ids >= 0).sum())
 
 
-# engine stats of the most recent dispatch in this process, read through
-# last_dispatch_stats()
-_LAST_STATS = {}
+# engine stats of each thread's most recent dispatch, read through
+# last_dispatch_stats() (shard workers dispatch at once)
+_THREAD_STATS = threading.local()
 # the stats that add up over slabs and groups
 _SUMMED_STATS = ("n_lanes", "lanes_padded", "blocks", "lane_iters_executed",
                  "lane_iters_monolithic", "flops_executed")
 
 
 def last_dispatch_stats():
-    """Stats of the most recent waterfall dispatch in this process:
+    """Stats of the calling thread's most recent waterfall dispatch (a
+    dispatch split over workers leaves its parts' stats added up on the
+    thread that split it, :func:`_merge_stats`):
     ``n_lanes``; ``lanes_padded`` (the lanes of the rungs the descents
     started at); ``blocks``; ``rungs`` (the lane counts the blocks ran
     at); ``lane_iters_executed`` (sum of rung x K over the blocks);
@@ -227,7 +230,12 @@ def last_dispatch_stats():
     counts one trip; the finalize is one more assembly and solve plus the
     ladder's five further 12x13 eliminations per frequency; the prelude
     is not counted)."""
-    return dict(_LAST_STATS)
+    return dict(getattr(_THREAD_STATS, "stats", {}))
+
+
+def _set_stats(stats):
+    """Make ``stats`` the calling thread's :func:`last_dispatch_stats`."""
+    _THREAD_STATS.stats = dict(stats)
 
 
 def waterfall_dispatch(physics, nodes_slots, args_slots, relax=0.8,
@@ -329,8 +337,7 @@ def _slabbed(physics, nodes, args, relax, K, kernel, S, shared_nodes,
             for key in _SUMMED_STATS:
                 agg[key] += st[key]
             agg["rungs"] += st["rungs"]
-    _LAST_STATS.clear()
-    _LAST_STATS.update(agg)
+    _set_stats(agg)
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]),
             SolveReport(*(torch.cat(f) for f in zip(*(o[2] for o in outs)))))
 
@@ -444,14 +451,13 @@ def _waterfall_loop(physics, relax, K, kernel, shared_nodes,
     flops += (_trip_flops(lane_sub, ids_full, nw)
               + Lq * _LADDER_EXTRA_SOLVES * _GJ_FLOPS * nw)
 
-    _LAST_STATS.clear()
-    _LAST_STATS.update(
+    _set_stats(dict(
         n_lanes=L, lanes_padded=Lq, blocks=blocks, rungs=rungs,
         lane_iters_executed=lane_iters,
         lane_iters_monolithic=trips * Lq,
         block_iters=K, kernel=bool(kernel), yields=yields,
         flops_executed=float(flops),
-    )
+    ))
     return xr[:L], xi[:L], SolveReport(*(f[:L] for f in report))
 
 
@@ -480,8 +486,7 @@ def _merge_stats(stats):
         for key in _SUMMED_STATS:
             agg[key] += st[key]
         agg["rungs"] += st["rungs"]
-    _LAST_STATS.clear()
-    _LAST_STATS.update(agg)
+    _set_stats(agg)
 
 
 def grouped_waterfall_pipeline(model0, relax=0.8, kernel=False, block=None):

@@ -174,8 +174,15 @@ def test_aero_servo_contributions_match(mod, wind, turb):
 
 
 def test_unported_sweep_paths_raise(rotors):
-    """The guided path (phi0) is ported (tests/test_torch_sweep_fused.py);
-    the host-mesh sharding of the rotor lanes is not."""
-    tr = rotors["tr"]
-    with pytest.raises(NotImplementedError, match="queue 1 step 8"):
-        tr.run_bem_batch([10.0], 0.0, n_devices=2)
+    """The guided path (phi0) is ported (tests/test_torch_sweep_fused.py),
+    and so are the rotor's host workers (tests/test_torch_host_shard.py):
+    two workers over the module's points give raft_tpu's values, the
+    one-worker block program's bits and raft_tpu's batch info."""
+    tr, jr = rotors["tr"], rotors["jr"]
+    U, pitch, yaw = POINTS.T
+    v2, J2 = tr.run_bem_batch(U, pitch, yaw, n_devices=2)
+    assert tr.last_batch_info == jr.last_batch_info
+    v1, J1 = tr.run_bem_batch(U, pitch, yaw, n_devices=1)
+    assert np.array_equal(v2, v1) and np.array_equal(J2, J1)
+    vj = np.asarray(rotors["jout"][0])
+    assert np.abs(v2 - vj).max() <= 1e-8 * np.abs(vj).max()

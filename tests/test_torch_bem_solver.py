@@ -170,10 +170,13 @@ def test_blocked_path_parity(monkeypatch, tpu_form_on_cpu):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(n_devices=2), NotImplementedError),
+    (dict(devices=["cpu", "cuda:7"]), RuntimeError),
     (dict(backend="tpu"), ValueError),
 ], ids=["sharded", "unknown-backend"])
 def test_solve_bem_refuses_what_is_not_ported(kw, exc):
+    """The sharded solve is ported (tests/test_torch_bem_shard.py); a
+    device list naming a card the host lacks is refused, never
+    truncated."""
     with pytest.raises(exc):
         tb.solve_bem(spar_panels(12.0, 12.0), [0.5], device="cpu", **kw)
 

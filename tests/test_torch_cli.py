@@ -96,8 +96,9 @@ def test_serve_stack_commands_exit_naming_step_12(command, spar, tmp_path):
     answers warm.  Then the network tier: ``serve --http 0`` (after
     ``warmup``) and ``serve --http 0 --replicas 2 --autoscale`` (after
     ``serve``) answer over the wire with the same bits and exit 0 on
-    SIGTERM; the flags the network tier needs refuse to run alone, and a
-    device list of two cards raises naming ROADMAP step 8 item 2."""
+    SIGTERM; the flags the network tier needs refuse to run alone, a
+    device list without ``--replicas`` exits 2, and a list naming cards
+    the host lacks raises."""
     from raft_tpu_torch.io.schema import load_design
     from raft_tpu_torch.serve import Engine, EngineConfig, WireClient, wire
 
@@ -175,9 +176,15 @@ def test_serve_stack_commands_exit_naming_step_12(command, spar, tmp_path):
         with pytest.raises(SystemExit) as e:
             main(argv)
         assert e.value.code == 2
-    with pytest.raises(NotImplementedError, match="queue 1 step 8 item 2"):
-        main(["serve", "--http", "0", "--replicas", "2", "--device",
-              "cuda:0,cuda:1"])
+    # a device list places replicas: without --replicas it is refused,
+    # and a list naming cards the host lacks raises before any spawn
+    with pytest.raises(SystemExit) as e:
+        main(["serve", "--http", "0", "--device", "cpu,cpu"])
+    assert e.value.code == 2
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["serve", "--http", "0", "--replicas", "2", "--device",
+                  "cuda:0,cuda:1"])
 
 
 def test_default_device_raises_without_a_card(spar):

@@ -230,21 +230,22 @@ def test_model_without_device_needs_cuda(monkeypatch, name):
 
 
 def test_unported_paths_raise_not_implemented():
-    """The BEM solve is ported (tests/test_torch_bem_model.py); its
-    multi-device form is not.  The checkable pipeline is ported
+    """The BEM solve is ported (tests/test_torch_bem_model.py), and so is
+    its multi-device form (tests/test_torch_bem_shard.py): two CPU
+    workers give one's coefficients.  The checkable pipeline is ported
     (tests/test_torch_validate.py); so are the serving buckets
     (``slots=``) and the delegated solve (``solver=``,
-    tests/test_torch_serve.py), whose lane mesh over more than one card
-    is not."""
+    tests/test_torch_serve.py), and the lane mesh
+    (tests/test_torch_serve_multichip.py)."""
     from raft_tpu_torch.serve import BucketSpec, EngineConfig
 
     design = _design("spar")
     design["platform"]["potModMaster"] = 2
-    bem = raft_tpu_torch.Model(design, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        bem.run_bem(n_devices=2, dz_max=20.0, da_max=20.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EngineConfig(device="cpu", serve_devices=2)
+    coeffs = [raft_tpu_torch.Model(design, device="cpu").run_bem(
+        nw_bem=4, n_devices=n, dz_max=20.0, da_max=20.0) for n in (1, 2)]
+    for k in ("A", "B", "X"):
+        assert np.array_equal(getattr(coeffs[0], k), getattr(coeffs[1], k))
+    assert EngineConfig(device="cpu", serve_devices=2).serve_devices == 2
     tm = raft_tpu_torch.Model(_design("spar"), device="cpu")
     calls = []
 

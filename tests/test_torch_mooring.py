@@ -151,16 +151,21 @@ def test_bridled_design_raises_not_implemented():
     from raft_tpu_torch.model import Model
 
     # bridles are ported (tests/test_torch_bridles.py): the design builds,
-    # a serving bucket too (the serve stack is ported), and a path still
-    # to port raises naming its ROADMAP.md step
+    # a serving bucket too (the serve stack is ported), and so does an
+    # engine with a lane mesh (the last path the port lacked; a device
+    # list naming a card the host lacks raises)
     from raft_tpu_torch.serve import BucketSpec, EngineConfig
+    from raft_tpu_torch.serve.buckets import serve_lane_devices
 
     m = Model(d, device="cpu")
     assert m._bridle_arrays is not None
     spec = BucketSpec(nw=m.nw, n_nodes=64, n_slots=8)
     assert Model(d, device="cpu", slots=spec).slots == spec
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EngineConfig(device="cpu", serve_devices=2)
+    assert EngineConfig(device="cpu", serve_devices=2).serve_devices == 2
+    assert len(serve_lane_devices("cpu", 2)) == 2
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError):
+            serve_lane_devices("cpu", ["cuda:0", "cuda:1"])
 
 
 # single lines (L, EA, w, Wp, cb) at spans (XF, ZF) in three regimes

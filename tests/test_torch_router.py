@@ -20,8 +20,8 @@ raft_tpu_torch serve --http 0 --device cpu --no-warmup`` replicas
 Attach mode over in-process servers: the ``/versionz`` handshake (and
 ``handshake_skew``), the shared-nothing warm transfer, single-flight
 coalescing with ``dup_inflight``, deadline admission, health, reweigh
-and ``gather_trace``.  One card only: a device list of two cards
-raises."""
+and ``gather_trace``.  A device list places replica i on entry i mod n;
+a list naming cards the host lacks raises."""
 
 import json
 import os
@@ -29,6 +29,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import raft_tpu.serve.router as jr
 import raft_tpu_torch.serve.result_cache as trc
@@ -73,11 +74,17 @@ def test_routing_key_is_the_result_caches_and_equals_raft_tpu():
         _design(nw=(0.05, 0.8)))
 
 
-def test_a_device_list_of_two_cards_raises_naming_the_step():
-    with pytest.raises(NotImplementedError, match="queue 1 step 8 item 2"):
-        Router(n_replicas=2, device="cuda:0,cuda:1")
-    assert tr.one_card("cuda:0,cuda:0") == "cuda:0"
-    assert tr.one_card(["cpu"]) == "cpu"
+def test_a_device_list_places_replica_i_on_entry_i_mod_n():
+    """Replica i runs on entry i mod n of the device list; a list naming
+    cards the host lacks raises before any spawn."""
+    assert tr.replica_devices(["cpu"]) == ["cpu"]
+    assert tr.replica_devices(None) == [None]
+    r = Router.__new__(Router)
+    r._devices = tr.replica_devices("cpu, cpu ,cpu")
+    assert [r._replica_device(i) for i in range(4)] == ["cpu"] * 4
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Router(n_replicas=2, device="cuda:0,cuda:1")
 
 
 # ------------------------------------------------- the spawned fleet

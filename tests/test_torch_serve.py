@@ -270,14 +270,16 @@ def test_engine_modes_solo_coalesced_direct(mode, tmp_path):
 
 def test_fixed_block_lane_topology(port_served, tmp_path):
     """``serve_devices=1`` dispatches fixed 8-lane super-blocks: an
-    8-slot bucket has the one-dispatch shape, so the same bits; wider
-    topologies need a multi-card host."""
+    8-slot bucket has the one-dispatch shape, so the same bits; a
+    2-worker mesh (tests/test_torch_serve_multichip.py) gives them too."""
     designs, results, _ = port_served
     res, snap = _serve(tmp_path, designs[:2], serve_devices=1)
     assert snap["mesh"] == "lane" and snap["lane_block"] == 8
     assert np.array_equal(res[0].Xi, results[0].Xi)
-    with pytest.raises(NotImplementedError, match="step 8 item 2"):
-        EngineConfig(device="cpu", serve_devices=2)
+    res2, snap2 = _serve(tmp_path, designs[:2], serve_devices=2)
+    assert snap2["mesh_width"] == 2 and snap2["flags"]["n_devices"] == 2
+    for a, b in zip(res2, res):
+        assert np.array_equal(a.Xi, b.Xi)
 
 
 def test_model_slots_validation():

@@ -240,11 +240,22 @@ def test_via_buckets_matches_the_sweep_pipeline(mode, tmp_path,
 
 
 def test_deferred_sweep_paths_raise():
-    points = ts.grid_points(AXES)[:1]
-    for kw in (dict(device=["cpu", "cpu"]),):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """The device lists are ported (tests/test_torch_sweep_devices.py):
+    two CPU workers give one device's bits; an empty list and a list
+    naming a card the host lacks are refused."""
+    points = ts.grid_points(AXES)[:3]
+    one = ts.run_sweep(_base(), points, _apply_point, verbose=False,
+                       device="cpu", chunk=1)
+    two = ts.run_sweep(_base(), points, _apply_point, verbose=False,
+                       device=["cpu", "cpu"], chunk=1)
+    assert np.array_equal(one["Xi"], two["Xi"])
+    with pytest.raises(ValueError):
+        ts.run_sweep(_base(), points, _apply_point, verbose=False,
+                     device=[])
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError):
             ts.run_sweep(_base(), points, _apply_point, verbose=False,
-                         **dict(dict(device="cpu"), **kw))
+                         device=["cpu", "cuda:1"])
 
 
 @pytest.mark.parametrize("entry", ["run_sweep", "run_draft_ballast_sweep",

@@ -248,14 +248,22 @@ def test_via_buckets_matches_the_sweep_pipeline(db_sweeps, design_sweeps,
 
 
 def test_deferred_sweep_paths_raise():
+    """run_draft_ballast_sweep has no batched prep (neither has the JAX
+    package's); a device list must divide the group, as in raft_tpu (the
+    device lists themselves: tests/test_torch_sweep_devices.py)."""
     d = _aero_design(False)
-    for kw in (dict(batched_prep=True), dict(device=["cpu", "cpu"])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tsf.run_draft_ballast_sweep(d, [1.0], [1.0], draft_group=1,
-                                        verbose=False,
-                                        **dict(dict(device="cpu"), **kw))
-    with pytest.raises(NotImplementedError, match="step 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tsf.run_draft_ballast_sweep(d, [1.0], [1.0], draft_group=1,
+                                    verbose=False, device="cpu",
+                                    batched_prep=True)
+    with pytest.raises(ValueError, match="does not divide"):
+        tsf.run_draft_ballast_sweep(d, [1.0], [1.0], draft_group=1,
+                                    verbose=False, device=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="does not divide"):
         tsf.run_design_sweep([d], device=["cpu", "cpu"], verbose=False)
+    one = tsf.run_design_sweep([d, d], device="cpu", verbose=False)
+    two = tsf.run_design_sweep([d, d], device=["cpu", "cpu"], verbose=False)
+    assert np.array_equal(one["std"], two["std"])
 
 
 def _volturnus_shaped():

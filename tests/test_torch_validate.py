@@ -201,5 +201,11 @@ def test_full_hull_convergence_matches_raft_tpu(tmp_path, monkeypatch):
             assert gap <= bar, (tag, k, gap)
     assert len(rel_A) == 6 and len(rel_X) == 3
     assert np.all(np.isfinite(rel_A)) and np.all(np.isfinite(rel_X))
-    with pytest.raises(NotImplementedError, match="queue 1 step 9"):
-        tv.full_hull_convergence(str(path), device="cpu", n_devices=2, **kw)
+    # the frequencies sharded over two CPU workers: the same bits
+    sols2, rel_A2, rel_X2 = tv.full_hull_convergence(
+        str(path), backend="cuda", device="cpu", n_devices=2, **kw)
+    for tag in ("fine", "xfine"):
+        assert sols2[tag]["sharded"] == "freq"
+        for k in BARS:
+            assert np.array_equal(sols2[tag][k], sols[tag][k]), (tag, k)
+    assert rel_A2 == rel_A and rel_X2 == rel_X

@@ -1874,7 +1874,20 @@ def cheb_forms_phase(tb, panels, lids, omega, g):
           f"max_rel_gap={gap:.2e}", flush=True)
 
 
-def bem_phase(rt, bg, gk, fk, Timers, ti, mm):
+def bem_stage_seconds(tracer):
+    """Host seconds of a BEM solve's stages from its tracer's spans:
+    ``bem_mesh`` (the meshing and lids), ``bem_rankine`` (the Rankine
+    part) and ``bem_device`` (the uploads, the device stages and the
+    fetch, which ends in the host copy)."""
+    st = tracer.stage_seconds()
+    device = ("bem.upload", "bem.assembly", "bem.elimination",
+              "bem.integrals", "bem.fetch")
+    return {"bem_mesh": st.get("bem.mesh", 0.0),
+            "bem_rankine": st.get("bem.rankine", 0.0),
+            "bem_device": sum(st.get(k, 0.0) for k in device)}
+
+
+def bem_phase(rt, bg, gk, fk, ti, mm):
     """Model(design).run_bem() on the card at the design's default panel
     sizes, with the kernels' launch counts set to 0 just before it; one
     solved frequency held against the same card form on the CPU."""
@@ -1885,13 +1898,12 @@ def bem_phase(rt, bg, gk, fk, Timers, ti, mm):
     model.analyze_unloaded()
     bg.reset_launches()
     gk.launches = fk.launches = 0
-    with Timers() as tm:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        coeffs = model.run_bem()
-        wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coeffs = model.run_bem()
+    wall_s = time.perf_counter() - t0
     launches = dict(bg.launches)
-    rep = {k: v["total_s"] for k, v in tm.report().items()}
+    rep = bem_stage_seconds(model.tracer)
     info = coeffs.solver_info
     nf = len(coeffs.w)
     blocks = 2 * info["npanels_solved"] // 512
@@ -3193,12 +3205,13 @@ def _streamed(tb, limit, budget):
     return old
 
 
-def bem_stream_cell_phase(rt, bg, Timers, model):
+def bem_stream_cell_phase(rt, bg, model):
     """Phase 34: phase 13's mesh through the streamed path (panel limit
     lowered in-process, band budget shrunk: 5 bands, 2 stages) at phase
     13's middle frequency, held against phase 13's direct card-form
     result (the Rankine part is cached, so this is device time only)."""
     from raft_tpu_torch import bem_solver as tb
+    from raft_tpu_torch.trace import Tracer
 
     coeffs = model.bem_coeffs
     panels, lids = _bem_cell_panels(model)
@@ -3208,11 +3221,12 @@ def bem_stream_cell_phase(rt, bg, Timers, model):
     old = _streamed(tb, 1000, STREAM_CELL_BUDGET_S)
     try:
         bg.reset_launches()
-        with Timers() as tm:
-            out = tb.solve_bem(panels, [coeffs.w[i]],
-                               betas=np.deg2rad(coeffs.headings),
-                               rho=model.rho_water, g=model.g,
-                               depth=model.depth, lid_panels=lids)
+        tracer = Tracer()
+        out = tb.solve_bem(panels, [coeffs.w[i]],
+                           betas=np.deg2rad(coeffs.headings),
+                           rho=model.rho_water, g=model.g,
+                           depth=model.depth, lid_panels=lids,
+                           tracer=tracer)
         launches = dict(bg.launches)
     finally:
         _streamed(tb, *old)
@@ -3226,27 +3240,28 @@ def bem_stream_cell_phase(rt, bg, Timers, model):
     print(f"phase bem streamed cell: panels={out['npanels']} solved_as="
           f"{out['npanels_solved']} w={coeffs.w[i]:.4f} bands=5 stages=2 "
           f"launches={launches} device_s="
-          f"{tm.report()['bem_device']['total_s']:.3f} | against phase 13's "
-          f"direct solve: bit_identical={same} gap_A={gaps['A']:.2e} gap_B="
-          f"{gaps['B']:.2e} gap_X={gaps['X']:.2e}", flush=True)
+          f"{bem_stage_seconds(tracer)['bem_device']:.3f} | against phase "
+          f"13's direct solve: bit_identical={same} gap_A={gaps['A']:.2e} "
+          f"gap_B={gaps['B']:.2e} gap_X={gaps['X']:.2e}", flush=True)
 
 
-def bem_report_cost_phase(rt, bg, Timers, model):
+def bem_report_cost_phase(rt, bg, model):
     """Phase 35: phase 13's direct solve at its middle frequency with
     ``report_cost=True``: flops, the elimination's share, and flops over
     the timed device seconds; the coefficients are phase 13's bits."""
     from raft_tpu_torch import bem_solver as tb
+    from raft_tpu_torch.trace import Tracer
 
     coeffs = model.bem_coeffs
     panels, lids = _bem_cell_panels(model)
     i = len(coeffs.w) // 2
     bg.reset_launches()
-    with Timers() as tm:
-        out = tb.solve_bem(panels, [coeffs.w[i]],
-                           betas=np.deg2rad(coeffs.headings),
-                           rho=model.rho_water, g=model.g, depth=model.depth,
-                           lid_panels=lids, report_cost=True)
-    device_s = tm.report()["bem_device"]["total_s"]
+    tracer = Tracer()
+    out = tb.solve_bem(panels, [coeffs.w[i]],
+                       betas=np.deg2rad(coeffs.headings),
+                       rho=model.rho_water, g=model.g, depth=model.depth,
+                       lid_panels=lids, report_cost=True, tracer=tracer)
+    device_s = bem_stage_seconds(tracer)["bem_device"]
     cost = tb.solve_cost(out["npanels_solved"], len(coeffs.headings),
                          finite=bool(np.isfinite(model.depth)))
     ref = {"A": coeffs.A[i:i + 1], "B": coeffs.B[i:i + 1],
@@ -3266,7 +3281,7 @@ def bem_report_cost_phase(rt, bg, Timers, model):
           flush=True)
 
 
-def bem_full_width_phase(rt, bg, Timers, model):
+def bem_full_width_phase(rt, bg, model):
     """Phase 36: the flagship's hull meshed finer, above the real
     ``STREAM_PANEL_LIMIT``, solved at one frequency in deep water: the
     streamed path on the card (its bands, stages, launches, host and
@@ -3276,6 +3291,7 @@ def bem_full_width_phase(rt, bg, Timers, model):
     peak no higher than the direct one."""
     from raft_tpu_torch import bem_solver as tb
     from raft_tpu_torch import mesh
+    from raft_tpu_torch.trace import Tracer
 
     panels = mesh.mesh_platform([m for m in model.members if m.potMod],
                                 **FULL_WIDTH_MESH)
@@ -3301,11 +3317,12 @@ def bem_full_width_phase(rt, bg, Timers, model):
                 base = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
                 bg.reset_launches()
-                with Timers() as tm:
-                    t0 = time.perf_counter()
-                    out = tb.solve_bem(panels, [FULL_WIDTH_OMEGA], **kw)
-                    wall = time.perf_counter() - t0
-                rep = {k: v["total_s"] for k, v in tm.report().items()}
+                tracer = Tracer()
+                t0 = time.perf_counter()
+                out = tb.solve_bem(panels, [FULL_WIDTH_OMEGA], tracer=tracer,
+                                   **kw)
+                wall = time.perf_counter() - t0
+                rep = bem_stage_seconds(tracer)
                 runs[name] = dict(out=out, launches=dict(bg.launches),
                                   peak=torch.cuda.max_memory_allocated()
                                   - base, wall=wall,
@@ -3803,7 +3820,7 @@ def main():
     ti32 = tile_inv_phase(bg, torch.float32, 1e-5)
     tile_inv_phase(bg, torch.float64, 1e-12)
     mm32 = {dt: mm_phase(bg, dt) for dt in (torch.float32, torch.float64)}
-    bem_model, l_bem = bem_phase(rt, bg, gk, fk, Timers, ti32,
+    bem_model, l_bem = bem_phase(rt, bg, gk, fk, ti32,
                                  mm32[torch.float32])
     bem_main_path_phase(rt, gk, bg, Timers, bem_model)
 
@@ -3813,9 +3830,9 @@ def main():
     l_checked = checked_phase(rt, gk)
     l_serve = serve_phases(rt, gk, fk)
     l_net = net_phases(rt)
-    bem_stream_cell_phase(rt, bg, Timers, bem_model)
-    bem_report_cost_phase(rt, bg, Timers, bem_model)
-    l_stream = bem_full_width_phase(rt, bg, Timers, bem_model)
+    bem_stream_cell_phase(rt, bg, bem_model)
+    bem_report_cost_phase(rt, bg, bem_model)
+    l_stream = bem_full_width_phase(rt, bg, bem_model)
     serve_sigterm_phase(rt)
     l_mesh = mesh_phases(rt, bg, gk, fk, bem_model, card)
     lint_phase()

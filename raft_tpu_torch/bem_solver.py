@@ -69,12 +69,13 @@ from raft_tpu_torch.kernels.bem_gj import (
     gj_stage_buffer,
     thread_launches,
 )
+from raft_tpu_torch.trace import maybe_span
 from raft_tpu_torch.utils.placement import (
     DeviceWorkers,
     resolve_device,
     resolve_devices,
 )
-from raft_tpu_torch.utils.profiling import logger, timer
+from raft_tpu_torch.utils.profiling import logger
 
 _G_GAUSS = np.array([-1.0 / np.sqrt(3.0), 1.0 / np.sqrt(3.0)])
 _PI = math.pi
@@ -318,10 +319,12 @@ def _blocked_gj(A, b, block=GJ_BLOCK):
     return x
 
 
-def _wave_rows(nu, k0, xc, nc_, y, w_q, tables, depth, kmax_geom, finite):
+def _wave_rows(nu, k0, xc, nc_, y, w_q, tables, depth, kmax_geom, finite,
+               tracer=None):
     """Wave-term influence rows for a collocation chunk: [RB,3]
     collocation points/normals against the full quadrature set
-    -> (Sw, Kw) [RB,N] complex."""
+    -> (Sw, Kw) [RB,N] complex.  ``tracer`` records the wave term and the
+    finite-depth correction as spans."""
     cheb = isinstance(tables, dict)
     dx = xc[:, None, None, 0] - y[None, :, :, 0]
     dy = xc[:, None, None, 1] - y[None, :, :, 1]
@@ -330,17 +333,20 @@ def _wave_rows(nu, k0, xc, nc_, y, w_q, tables, depth, kmax_geom, finite):
     Rs = torch.clamp(Rh, min=1e-9)
     ex = dx / Rs
     ey = dy / Rs
-    if cheb:
-        Gw, dGw_dR, dGw_dz = greens.wave_term_cheb(nu, Rh, zz, tables)
-    else:
-        Gw, dGw_dR, dGw_dz = greens.wave_term(nu, Rh, zz, *tables)
+    with maybe_span(tracer, "bem.assembly.wave_term", device=xc.device):
+        if cheb:
+            Gw, dGw_dR, dGw_dz = greens.wave_term_cheb(nu, Rh, zz, tables)
+        else:
+            Gw, dGw_dR, dGw_dz = greens.wave_term(nu, Rh, zz, *tables)
     if finite:
         # finite-depth wave-term difference (John's G minus the deep
         # part; the seabed-image Rankine term is already in S0/K0)
-        dGc, dRc, dzc = greens.finite_depth_correction(
-            nu, k0, depth, Rh, xc[:, None, None, 2], y[None, :, :, 2],
-            kmax_geom,
-        )
+        with maybe_span(tracer, "bem.assembly.finite_depth",
+                        device=xc.device):
+            dGc, dRc, dzc = greens.finite_depth_correction(
+                nu, k0, depth, Rh, xc[:, None, None, 2], y[None, :, :, 2],
+                kmax_geom,
+            )
         Gw = Gw + dGc
         dGw_dR = dGw_dR + dRc
         dGw_dz = dGw_dz + dzc
@@ -370,32 +376,46 @@ def _row_block(N, Q, cheb):
 
 
 def _solve_all(omegas, betas, x, nrm, area, y, w_q, S0, K0, vmodes, jump,
-               tables, g, rho, real_block, depth, kmax_geom, finite):
+               tables, g, rho, real_block, depth, kmax_geom, finite,
+               traces=None):
     """The solve over all frequencies, one after another, on the device
     of the tensors (float32 / complex64): per frequency the wave-term
     assembly in row blocks, the boundary-condition solve and the
-    pressure integrals.  Returns (A [nw,6,6], B, Xr [nw,nb,6], Xi)."""
+    pressure integrals.  ``traces``, where given, holds one tracer per
+    frequency for the stages' spans.  Returns [(A [6,6], B, Xr [nb,6],
+    Xi)] per frequency (:func:`_fetch` stacks them)."""
     N = x.shape[0]
     RB = _row_block(N, y.shape[1], isinstance(tables, dict))
     S0c = S0.to(_C64)
     K0c = K0.to(_C64)
     out = []
-    for omega in omegas:
-        nu = omega * omega / g
-        k0 = greens.dispersion_k0(nu, depth) if finite else nu
-        Sw = torch.empty((N, N), dtype=_C64, device=x.device)
-        Kw = torch.empty((N, N), dtype=_C64, device=x.device)
-        for r0 in range(0, N, RB):
-            Sw[r0:r0 + RB], Kw[r0:r0 + RB] = _wave_rows(
-                nu, k0, x[r0:r0 + RB], nrm[r0:r0 + RB], y, w_q, tables,
-                depth, kmax_geom, finite)
-        S = S0c + Sw
-        K = K0c + Kw
-        del Sw, Kw
+    for i, omega in enumerate(omegas):
+        tr = None if traces is None else traces[i]
+        with maybe_span(tr, "bem.assembly", device=x.device):
+            nu = omega * omega / g
+            k0 = greens.dispersion_k0(nu, depth) if finite else nu
+            Sw = torch.empty((N, N), dtype=_C64, device=x.device)
+            Kw = torch.empty((N, N), dtype=_C64, device=x.device)
+            for r0 in range(0, N, RB):
+                Sw[r0:r0 + RB], Kw[r0:r0 + RB] = _wave_rows(
+                    nu, k0, x[r0:r0 + RB], nrm[r0:r0 + RB], y, w_q, tables,
+                    depth, kmax_geom, finite, tr)
+            S = S0c + Sw
+            K = K0c + Kw
+            del Sw, Kw
         out.append(_post_assembly(omega, nu, k0, S, K, betas, x, nrm, area,
                                   vmodes, jump, g, rho, real_block, depth,
-                                  finite))
-    return tuple(torch.stack([o[j] for o in out]) for j in range(4))
+                                  finite, tr))
+    return out
+
+
+def _fetch(out, tracer=None):
+    """Per-frequency outputs [(A, B, Xr, Xi)] stacked and copied to the
+    host as float64 NumPy, in a ``bem.fetch`` span (its host seconds are
+    the wait for the device)."""
+    with maybe_span(tracer, "bem.fetch"):
+        res = [torch.stack([o[j] for o in out]).cpu() for j in range(4)]
+    return tuple(t.numpy().astype(np.float64) for t in res)
 
 
 def _incident_wave(omega, nu, k0, betas, x, nrm, g, depth, finite):
@@ -452,29 +472,32 @@ def _integrate_outputs(omega, sigma, S, phiI, area, vmodes, rho):
 
 
 def _post_assembly(omega, nu, k0, S, K, betas, x, nrm, area, vmodes, jump,
-                   g, rho, real_block, depth, finite):
+                   g, rho, real_block, depth, finite, tracer=None):
     """From assembled influence matrices to (A, B, Xr, Xi) for one
-    frequency: the boundary-condition solve and the pressure integrals."""
+    frequency: the boundary-condition solve (the ``bem.elimination``
+    span) and the pressure integrals (``bem.integrals``)."""
     N = x.shape[0]
-    # exterior (fluid-side) limit of the single-layer normal derivative:
-    # dphi/dn = jump*sigma + K' sigma with jump = -1/2 on body rows and
-    # LID_JUMP on interior free-surface rows
-    lhs = K / (4 * _PI) + torch.diag(jump).to(_C64)
+    with maybe_span(tracer, "bem.elimination", device=x.device):
+        # exterior (fluid-side) limit of the single-layer normal
+        # derivative: dphi/dn = jump*sigma + K' sigma with jump = -1/2 on
+        # body rows and LID_JUMP on interior free-surface rows
+        lhs = K / (4 * _PI) + torch.diag(jump).to(_C64)
 
-    # radiation RHS (unit velocity) + diffraction RHS per heading
-    phiI, dphiIdn = _incident_wave(omega, nu, k0, betas, x, nrm, g,
-                                   depth, finite)
-    rhs = torch.cat([vmodes.to(_C64), -dphiIdn], dim=0)        # [6+nb,N]
-    if real_block:
-        A2, b2 = _real_block_system(lhs, rhs)
-        if N > BLOCKED_GJ_MIN_PANELS and (2 * N) % GJ_BLOCK == 0:
-            sol = _blocked_gj(A2, b2, block=GJ_BLOCK)          # [2N,6+nb]
+        # radiation RHS (unit velocity) + diffraction RHS per heading
+        phiI, dphiIdn = _incident_wave(omega, nu, k0, betas, x, nrm, g,
+                                       depth, finite)
+        rhs = torch.cat([vmodes.to(_C64), -dphiIdn], dim=0)    # [6+nb,N]
+        if real_block:
+            A2, b2 = _real_block_system(lhs, rhs)
+            if N > BLOCKED_GJ_MIN_PANELS and (2 * N) % GJ_BLOCK == 0:
+                sol = _blocked_gj(A2, b2, block=GJ_BLOCK)      # [2N,6+nb]
+            else:
+                sol = torch.linalg.solve(A2, b2)               # [2N,6+nb]
+            sigma = torch.complex(sol[:N], sol[N:]).T          # [6+nb,N]
         else:
-            sol = torch.linalg.solve(A2, b2)                   # [2N,6+nb]
-        sigma = torch.complex(sol[:N], sol[N:]).T              # [6+nb,N]
-    else:
-        sigma = torch.linalg.solve(lhs, rhs.T).T               # [6+nb,N]
-    return _integrate_outputs(omega, sigma, S, phiI, area, vmodes, rho)
+            sigma = torch.linalg.solve(lhs, rhs.T).T           # [6+nb,N]
+    with maybe_span(tracer, "bem.integrals", device=x.device):
+        return _integrate_outputs(omega, sigma, S, phiI, area, vmodes, rho)
 
 
 def _stream_plan(n, band_budget_s=None):
@@ -504,7 +527,7 @@ def _sync(device):
 
 
 def _run_streamed(omegas, betas, x, nrm, area, y, w_q, S0, K0, vmodes, jump,
-                  tables, g, rho, depth, kmax_geom, finite):
+                  tables, g, rho, depth, kmax_geom, finite, traces=None):
     """The streamed out-of-core card-form solve, one frequency after
     another, with a host sync after each band and each stage:
 
@@ -523,16 +546,20 @@ def _run_streamed(omegas, betas, x, nrm, area, y, w_q, S0, K0, vmodes, jump,
       * integrals: the pressure integrals (:func:`_integrate_outputs`).
 
     Every operation is the direct path's on the same operands, so the
-    result is the direct card-form solve's, bit for bit.  The live set
-    while a stage runs is ``S0``, ``K0`` (f32), ``S`` (c64), ``[A | b]``
-    and the step's new buffer (f32, 2N x (2N + m_pad) each): about
-    48 N^2 bytes, against about 96 N^2 for the direct path (which also
-    holds ``S0``/``K0`` as c64, ``K``, ``lhs`` and the block matrix).
+    result is the direct card-form solve's, bit for bit.  ``traces``, as
+    in :func:`_solve_all`, records one ``bem.assembly`` span per band,
+    one ``bem.elimination`` span for the system and one per stage, and
+    ``bem.integrals``.  The live set while a stage runs is ``S0``,
+    ``K0`` (f32), ``S`` (c64), ``[A | b]`` and the step's new buffer
+    (f32, 2N x (2N + m_pad) each): about 48 N^2 bytes, against about
+    96 N^2 for the direct path (which also holds ``S0``/``K0`` as c64,
+    ``K``, ``lhs`` and the block matrix).
     During the assembly it is 24 N^2 bytes and one row block's
     temporaries, which set the peak at 10496 panels: 6.65 GiB against
     4.93 GiB counted for a stage (chip_smoke.py phase 36, its first run
     in docs/torch_port.md section 6; NVIDIA H100 80GB HBM3, 700.00 W).
-    Returns ((A, B, Xr, Xi), {"bands": D, "solve_stages": S})."""
+    Returns ([(A, B, Xr, Xi)] per frequency, {"bands": D,
+    "solve_stages": S})."""
     N = x.shape[0]
     dev = x.device
     D, steps = _stream_plan(N)
@@ -540,44 +567,49 @@ def _run_streamed(omegas, betas, x, nrm, area, y, w_q, S0, K0, vmodes, jump,
     RB = math.gcd(_row_block(N, y.shape[1], True), rows)
     m = 6 + betas.shape[0]
     out = []
-    for omega in omegas:
+    for i, omega in enumerate(omegas):
+        tr = None if traces is None else traces[i]
         nu = omega * omega / g
         k0 = greens.dispersion_k0(nu, depth) if finite else nu
         S = torch.empty((N, N), dtype=_C64, device=dev)
         K = torch.empty((N, N), dtype=_C64, device=dev)
-        for b0 in range(0, N, rows):
-            for r0 in range(b0, b0 + rows, RB):
-                S[r0:r0 + RB], K[r0:r0 + RB] = _wave_rows(
-                    nu, k0, x[r0:r0 + RB], nrm[r0:r0 + RB], y, w_q, tables,
-                    depth, kmax_geom, finite)
+        for band, b0 in enumerate(range(0, N, rows)):
+            with maybe_span(tr, "bem.assembly", device=dev, band=band):
+                for r0 in range(b0, b0 + rows, RB):
+                    S[r0:r0 + RB], K[r0:r0 + RB] = _wave_rows(
+                        nu, k0, x[r0:r0 + RB], nrm[r0:r0 + RB], y, w_q,
+                        tables, depth, kmax_geom, finite, tr)
+                _sync(dev)
+        with maybe_span(tr, "bem.elimination", device=dev, stage="system"):
+            # the direct path's S0 + Sw, K0 + Kw and K / 4 pi + diag(jump)
+            S.add_(S0)
+            K.add_(K0)
+            K.div_(4 * _PI)
+            K.add_(torch.diag(jump).to(_C64))
+            phiI, dphiIdn = _incident_wave(omega, nu, k0, betas, x, nrm, g,
+                                           depth, finite)
+            rhs = torch.cat([vmodes.to(_C64), -dphiIdn], dim=0)  # [6+nb,N]
+            A2, b2 = _real_block_system(K, rhs)
+            del K, rhs
+            Ab = gj_buffer(A2, b2)
+            del A2, b2
             _sync(dev)
-        # the direct path's S0 + Sw, K0 + Kw and K / 4 pi + diag(jump)
-        S.add_(S0)
-        K.add_(K0)
-        K.div_(4 * _PI)
-        K.add_(torch.diag(jump).to(_C64))
-        phiI, dphiIdn = _incident_wave(omega, nu, k0, betas, x, nrm, g,
-                                       depth, finite)
-        rhs = torch.cat([vmodes.to(_C64), -dphiIdn], dim=0)    # [6+nb,N]
-        A2, b2 = _real_block_system(K, rhs)
-        del K, rhs
-        Ab = gj_buffer(A2, b2)
-        del A2, b2
-        _sync(dev)
         kb0 = 0
-        for ns in steps:
-            Ab = gj_stage_buffer(Ab, 2 * N, kb0, ns, GJ_BLOCK)
-            _sync(dev)
+        for stage, ns in enumerate(steps):
+            with maybe_span(tr, "bem.elimination", device=dev,
+                            stage=stage):
+                Ab = gj_stage_buffer(Ab, 2 * N, kb0, ns, GJ_BLOCK)
+                _sync(dev)
             kb0 += ns
-        sol = Ab[:, 2 * N:2 * N + m]
-        del Ab
-        sigma = torch.complex(sol[:N], sol[N:]).T              # [6+nb,N]
-        out.append(_integrate_outputs(omega, sigma, S, phiI, area, vmodes,
-                                      rho))
-        del S, sol, sigma
-        _sync(dev)
-    res = tuple(torch.stack([o[j] for o in out]) for j in range(4))
-    return res, {"bands": D, "solve_stages": len(steps)}
+        with maybe_span(tr, "bem.integrals", device=dev):
+            sol = Ab[:, 2 * N:2 * N + m]
+            del Ab
+            sigma = torch.complex(sol[:N], sol[N:]).T          # [6+nb,N]
+            out.append(_integrate_outputs(omega, sigma, S, phiI, area,
+                                          vmodes, rho))
+            del S, sol, sigma
+            _sync(dev)
+    return out, {"bands": D, "solve_stages": len(steps)}
 
 
 # Device seconds of one sharded dispatch per worker: each of the workers
@@ -620,7 +652,8 @@ def _shard_mode(n_dev, nw, nb, streamed):
     return None
 
 
-def _run_sharded(omegas, betas, host_ops, devs, mode, n, real_block):
+def _run_sharded(omegas, betas, host_ops, devs, mode, n, real_block,
+                 tracer=None):
     """The solve over the device list ``devs``: the items (frequencies,
     or in ``freqbeta`` mode the flattened (frequency, heading) pairs with
     one heading each) are repeat-padded to whole dispatches of
@@ -632,10 +665,11 @@ def _run_sharded(omegas, betas, host_ops, devs, mode, n, real_block):
 
     ``host_ops`` is ``(x, nrm, area, y, w_q, S0, K0, vmodes, jump, tables,
     g, rho, depth, kmax_geom, finite)`` with the arrays as host NumPy and
-    ``tables`` a dict or tuple of them.  Returns ``((A, B, Xr, Xi) host
-    NumPy float64 in the caller's layout, info)``, ``info`` holding
-    ``chunk_total``, ``n_items`` and ``shard_launches`` (each worker's
-    BEM kernel launches)."""
+    ``tables`` a dict or tuple of them.  ``tracer`` records each device's
+    upload and each worker's stages with ``backend`` the device's name.
+    Returns ``((A, B, Xr, Xi) host NumPy float64 in the caller's layout,
+    info)``, ``info`` holding ``chunk_total``, ``n_items`` and
+    ``shard_launches`` (each worker's BEM kernel launches)."""
     (x, nrm, area, y, w_q, S0, K0, vmodes, jump, tables, g, rho, depth,
      kmax_geom, finite) = host_ops
     n_dev = len(devs)
@@ -664,32 +698,35 @@ def _run_sharded(omegas, betas, host_ops, devs, mode, n, real_block):
     placed = {}
     for dev in devs:
         if dev not in placed:
-            tabs = ({k: put(v, dev) for k, v in tables.items()}
-                    if isinstance(tables, dict)
-                    else tuple(put(t, dev) for t in tables))
-            placed[dev] = (tuple(put(a, dev) for a in (
-                x, nrm, area, y, w_q, S0, K0, vmodes, jump)), tabs,
-                put(depth, dev), put(kmax_geom, dev))
+            with maybe_span(tracer, "bem.upload", backend=str(dev)) as h:
+                tabs = ({k: put(v, dev) for k, v in tables.items()}
+                        if isinstance(tables, dict)
+                        else tuple(put(t, dev) for t in tables))
+                placed[dev] = (tuple(put(a, dev) for a in (
+                    x, nrm, area, y, w_q, S0, K0, vmodes, jump)), tabs,
+                    put(depth, dev), put(kmax_geom, dev))
+                h["meta"]["bytes"] = _nbytes(placed[dev])
 
     def shard(dev, idx):
         """Items ``idx`` on ``dev``: one _solve_all over their frequencies
         and every heading, or in ``freqbeta`` mode one per item over its
         one heading."""
         arrs, tabs, depth_t, kmax_t = placed[dev]
+        on = None if tracer is None else tracer.bind(backend=str(dev))
+        traces = None if on is None else [
+            on.bind(omega=float(items_om[i])) for i in idx]
         before = thread_launches()
         if mode == "freqbeta":
-            parts = [_solve_all(put(items_om[i:i + 1], dev),
-                                put(items_bet[i], dev), *arrs, tabs, g,
-                                rho, real_block, depth_t, kmax_t, finite)
-                     for i in idx]
-            res = tuple(torch.cat([p[j] for p in parts]) for j in range(4))
+            out = [o for j, i in enumerate(idx) for o in _solve_all(
+                put(items_om[i:i + 1], dev), put(items_bet[i], dev), *arrs,
+                tabs, g, rho, real_block, depth_t, kmax_t, finite,
+                None if traces is None else traces[j:j + 1])]
         else:
-            res = _solve_all(put(items_om[idx], dev), put(betas, dev), *arrs,
+            out = _solve_all(put(items_om[idx], dev), put(betas, dev), *arrs,
                              tabs, g, rho, real_block, depth_t, kmax_t,
-                             finite)
+                             finite, traces)
         after = thread_launches()
-        return (tuple(t.cpu().numpy().astype(np.float64) for t in res),
-                {k: after[k] - before[k] for k in after})
+        return _fetch(out, on), {k: after[k] - before[k] for k in after}
 
     with DeviceWorkers(devs, name="raft-bem-shard") as workers:
         futs = [workers.submit(d, shard, devs[d], np.arange(
@@ -711,6 +748,19 @@ def _run_sharded(omegas, betas, host_ops, devs, mode, n, real_block):
                             "shard_launches": launches}
 
 
+def _nbytes(*trees):
+    """Bytes of the tensors in nested tuples, lists and dicts."""
+    n = 0
+    for t in trees:
+        if isinstance(t, torch.Tensor):
+            n += t.nbytes
+        elif isinstance(t, dict):
+            n += _nbytes(*t.values())
+        elif isinstance(t, (tuple, list)):
+            n += _nbytes(*t)
+    return n
+
+
 # frequency-independent Rankine matrices keyed by (mesh bytes, depth) —
 # raw bytes, so distinct meshes can never collide; FIFO bound by total
 # byte budget (each entry is two [N,N] f32 matrices)
@@ -728,12 +778,15 @@ LID_JUMP = 1.0
 
 
 def _cached_rankine(pa, panels, lid_panels, has_lid, depth, lid_mask):
+    """(S0, K0) float32 of the mesh from the cache, computed on a miss;
+    and whether it was a hit."""
     key = (
         np.asarray(panels, float).tobytes(), depth, pa.n,
         np.asarray(lid_panels, float).tobytes() if has_lid else b"",
     )
     cached = _rankine_cache.get(key)
-    if cached is None:
+    hit = cached is not None
+    if not hit:
         S0f, K0f = _rankine(pa, depth=depth, lid_mask=lid_mask)
         # cache in f32 — the solver consumes f32 anyway
         cached = (S0f.astype(np.float32), K0f.astype(np.float32))
@@ -745,12 +798,13 @@ def _cached_rankine(pa, panels, lid_panels, has_lid, depth, lid_mask):
                 old = _rankine_cache.pop(next(iter(_rankine_cache)))
                 held -= old[0].nbytes + old[1].nbytes
             _rankine_cache[key] = cached
-    return cached
+    return cached, hit
 
 
 def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
               quad="gauss", backend=None, depth=np.inf, lid_panels=None,
-              report_cost=False, n_devices=None, device=None, devices=None):
+              report_cost=False, n_devices=None, device=None, devices=None,
+              tracer=None):
     """Radiation + diffraction solve over frequencies.
 
     panels : [npan,4,3] wetted-hull panels (outward normals)
@@ -784,6 +838,15 @@ def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
         items solved (frequencies; frequency x heading pairs of one heading
         each in ``freqbeta`` mode), not on the streamed path, as in the
         JAX package.
+    tracer : a :class:`raft_tpu_torch.trace.Tracer` (or a view of one)
+        that records the solve's stages as spans: ``bem.prep`` (host work
+        before the Rankine part), ``bem.rankine`` (``meta["hit"]``: the
+        cache held it), ``bem.upload`` (``meta["bytes"]`` copied to the
+        device), per frequency (``meta["omega"]``) ``bem.assembly`` with
+        ``bem.assembly.wave_term`` and ``bem.assembly.finite_depth`` per
+        row block, ``bem.elimination`` and ``bem.integrals``, then
+        ``bem.fetch`` (the copy back).  The per-frequency spans also record the device's time
+        (``meta["device_s"]``) on a card.  None records nothing.
     Returns dict with A [nw,6,6], B [nw,6,6] and X [nw, nbeta, 6] complex
     (excitation per unit wave amplitude, e^{+iwt} convention,
     PRP-referenced), plus the panel counts; a card-form mesh above
@@ -795,9 +858,96 @@ def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
     if backend not in ("cuda", "cpu"):
         raise ValueError(f"backend must be 'cuda' or 'cpu', got {backend!r}")
     real_block = backend == "cuda"
-    devs = _solve_devices(device, n_devices, devices, backend)
-    device = devs[0]
+    with maybe_span(tracer, "bem.prep"):
+        devs = _solve_devices(device, n_devices, devices, backend)
+        device = devs[0]
+        prep = _prepare(panels, omegas, betas, quad, depth, lid_panels,
+                        real_block)
+    pa, pa_wave = prep["pa"], prep["pa_wave"]
+    depth, kmax_geom = prep["depth"], prep["kmax_geom"]
+    omegas, betas_a = prep["omegas"], prep["betas"]
+    finite = bool(np.isfinite(depth))
+    streamed = real_block and pa.n > STREAM_PANEL_LIMIT
+    if streamed:
+        logger.info(
+            "solve_bem: %d panels exceeds %d; using the streamed "
+            "out-of-core path (band assembly and staged elimination per "
+            "frequency)", pa.n, STREAM_PANEL_LIMIT)
+    with maybe_span(tracer, "bem.rankine") as h:
+        (S0, K0), h["meta"]["hit"] = _cached_rankine(
+            pa, panels, lid_panels, prep["has_lid"], depth, prep["lid_mask"])
+    tables = prep["tables"]
+    mode = _shard_mode(len(devs), len(omegas), len(betas_a), streamed)
+    if mode:
+        (A, B, Xr, Xi), info = _run_sharded(
+            omegas, betas_a, (pa.cen, pa.nrm, pa.area, pa_wave.qpts,
+                              pa_wave.qwts, S0, K0, prep["vmodes"],
+                              prep["jump"], tables, float(g), float(rho),
+                              depth if finite else 0.0, kmax_geom, finite),
+            devs, mode, pa.n, real_block, tracer)
+        out = {
+            "w": omegas, "A": A, "B": B, "X": Xr + 1j * Xi,
+            "betas": np.asarray(betas, float), "npanels": prep["n_real"],
+            "npanels_solved": pa.n, "sharded": mode,
+            "n_devices": len(devs),
+            "shard_launches": info["shard_launches"],
+        }
+        if report_cost:
+            nb_item = 1 if mode == "freqbeta" else len(betas_a)
+            per_item = solve_cost(pa.n, nb_item, real_block, finite,
+                                  pa_wave.qpts.shape[1])["total"]
+            # one dispatch's count, scaled by items / chunk_total as the
+            # JAX package scales its compiled dispatch's count
+            out["flops"] = per_item * info["chunk_total"] * (
+                info["n_items"] / info["chunk_total"])
+        return out
 
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    with maybe_span(tracer, "bem.upload") as h:
+        if real_block:
+            tables = {k: put(v) for k, v in tables.items()}
+        else:
+            tables = tuple(put(t) for t in tables)
+        ops = (put(omegas), put(betas_a), put(pa.cen), put(pa.nrm),
+               put(pa.area), put(pa_wave.qpts), put(pa_wave.qwts), put(S0),
+               put(K0), put(prep["vmodes"]), put(prep["jump"]), tables,
+               float(g), float(rho))
+        depth_ops = (put(depth if finite else 0.0), put(kmax_geom), finite)
+        h["meta"]["bytes"] = _nbytes(ops, depth_ops)
+    traces = None if tracer is None else [
+        tracer.bind(omega=float(w)) for w in omegas]
+    if streamed:
+        res, plan = _run_streamed(*ops, *depth_ops, traces)
+    else:
+        res = _solve_all(*ops, real_block, *depth_ops, traces)
+    A, B, Xr, Xi = _fetch(res, tracer)
+    out = {
+        "w": omegas,
+        "A": A,
+        "B": B,
+        "X": Xr + 1j * Xi,
+        "betas": np.asarray(betas, float),
+        "npanels": prep["n_real"],
+        "npanels_solved": pa.n,   # incl. inert padding in the card form
+    }
+    if streamed:
+        # as in the JAX package, the streamed path reports no cost
+        out.update(streamed=True, stream_bands=plan["bands"],
+                   stream_solve_dispatches=plan["solve_stages"])
+    elif report_cost:
+        out["flops"] = len(omegas) * solve_cost(
+            pa.n, len(betas_a), real_block, finite,
+            pa_wave.qpts.shape[1])["total"]
+    return out
+
+
+def _prepare(panels, omegas, betas, quad, depth, lid_panels, real_block):
+    """The host work of :func:`solve_bem` before the Rankine part: the
+    panel arrays (lids joined, padded in the card form), the lid mask and
+    jumps, the radiation normals, the wave term's quadrature and tables,
+    the depth's quadrature limit, the frequencies and headings."""
     pa = panel_arrays(panels)        # 2x2 Gauss for the singular Rankine part
     n_body = pa.n
     has_lid = lid_panels is not None and len(lid_panels) > 0
@@ -818,22 +968,12 @@ def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
         kmax_geom = 15.0 / (depth - draft)
     else:
         kmax_geom = 0.0
-    streamed = real_block and pa.n > STREAM_PANEL_LIMIT
-    if streamed:
-        logger.info(
-            "solve_bem: %d panels exceeds %d; using the streamed "
-            "out-of-core path (band assembly and staged elimination per "
-            "frequency)", pa.n, STREAM_PANEL_LIMIT)
     if real_block:
         # the blocked solve's 512-row block multiple
         pa = pad_panel_arrays(pa)
     # lid rows: everything past the body panels, up to the padding
     lid_mask = np.zeros(pa.n, bool)
     lid_mask[n_body:n_real] = True
-    jump = np.where(lid_mask, LID_JUMP, -0.5)
-    with timer("bem_rankine"):
-        S0, K0 = _cached_rankine(pa, panels, lid_panels, has_lid, depth,
-                                 lid_mask)
     # the per-frequency wave term is smooth: "centroid" swaps only its
     # quadrature for a faster assembly
     if quad == "gauss":
@@ -849,77 +989,15 @@ def solve_bem(panels, omegas, betas=(0.0,), rho=1025.0, g=9.81,
     # lids are rigid extensions: zero radiation normal velocity AND zero
     # weight in the pressure-force integrals (both flow through vmodes)
     vmodes[:, lid_mask] = 0.0
-
-    def put(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-    omegas = np.atleast_1d(np.asarray(omegas, float))
-    betas_a = np.atleast_1d(np.asarray(betas, float))
-    mode = _shard_mode(len(devs), len(omegas), len(betas_a), streamed)
-    if real_block:
-        tables = greens.load_cheb_tables()
-    else:
-        tables = tuple(greens.load_tables())
-    if mode:
-        with timer("bem_device"):
-            (A, B, Xr, Xi), info = _run_sharded(
-                omegas, betas_a, (pa.cen, pa.nrm, pa.area, pa_wave.qpts,
-                                  pa_wave.qwts, S0, K0, vmodes, jump, tables,
-                                  float(g), float(rho),
-                                  depth if np.isfinite(depth) else 0.0,
-                                  kmax_geom, bool(np.isfinite(depth))),
-                devs, mode, pa.n, real_block)
-        out = {
-            "w": omegas, "A": A, "B": B, "X": Xr + 1j * Xi,
-            "betas": np.asarray(betas, float), "npanels": n_real,
-            "npanels_solved": pa.n, "sharded": mode,
-            "n_devices": len(devs),
-            "shard_launches": info["shard_launches"],
-        }
-        if report_cost:
-            nb_item = 1 if mode == "freqbeta" else len(betas_a)
-            per_item = solve_cost(pa.n, nb_item, real_block,
-                                  bool(np.isfinite(depth)),
-                                  pa_wave.qpts.shape[1])["total"]
-            # one dispatch's count, scaled by items / chunk_total as the
-            # JAX package scales its compiled dispatch's count
-            out["flops"] = per_item * info["chunk_total"] * (
-                info["n_items"] / info["chunk_total"])
-        return out
-    if real_block:
-        tables = {k: put(v) for k, v in tables.items()}
-    else:
-        tables = tuple(put(t) for t in tables)
-    ops = (put(omegas), put(np.atleast_1d(np.asarray(betas, float))),
-           put(pa.cen), put(pa.nrm), put(pa.area), put(pa_wave.qpts),
-           put(pa_wave.qwts), put(S0), put(K0), put(vmodes), put(jump),
-           tables, float(g), float(rho))
-    depth_ops = (put(depth if np.isfinite(depth) else 0.0), put(kmax_geom),
-                 bool(np.isfinite(depth)))
-    with timer("bem_device"):
-        if streamed:
-            res, plan = _run_streamed(*ops, *depth_ops)
-        else:
-            res = _solve_all(*ops, real_block, *depth_ops)
-        A, B, Xr, Xi = (t.cpu().numpy().astype(np.float64) for t in res)
-    out = {
-        "w": omegas,
-        "A": A,
-        "B": B,
-        "X": Xr + 1j * Xi,
-        "betas": np.asarray(betas, float),
-        "npanels": n_real,
-        "npanels_solved": pa.n,   # incl. inert padding in the card form
+    return {
+        "pa": pa, "pa_wave": pa_wave, "n_real": n_real, "has_lid": has_lid,
+        "lid_mask": lid_mask, "jump": np.where(lid_mask, LID_JUMP, -0.5),
+        "vmodes": vmodes, "depth": depth, "kmax_geom": kmax_geom,
+        "omegas": np.atleast_1d(np.asarray(omegas, float)),
+        "betas": np.atleast_1d(np.asarray(betas, float)),
+        "tables": (greens.load_cheb_tables() if real_block
+                   else tuple(greens.load_tables())),
     }
-    if streamed:
-        # as in the JAX package, the streamed path reports no cost
-        out.update(streamed=True, stream_bands=plan["bands"],
-                   stream_solve_dispatches=plan["solve_stages"])
-    elif report_cost:
-        out["flops"] = len(omegas) * solve_cost(
-            pa.n, len(np.atleast_1d(betas)), real_block,
-            bool(np.isfinite(depth)), pa_wave.qpts.shape[1])["total"]
-    return out
 
 
 # Operations per pair-quadrature point of the wave-term assembly, counted
@@ -1014,7 +1092,7 @@ def coeffs_from_members(members, omegas, headings_deg=(0.0,), rho=1025.0,
                         g=9.81, dz_max=0.0, da_max=0.0, panels=None,
                         quad="gauss", backend=None, depth=np.inf,
                         irr_removal=True, n_devices=None, device=None,
-                        devices=None):
+                        devices=None, tracer=None):
     """Mesh all potMod members, run the native solver, return a
     HydroCoeffs set (the container the WAMIT-file import path produces,
     so the Model pipeline is agnostic to where coefficients came from).
@@ -1024,6 +1102,9 @@ def coeffs_from_members(members, omegas, headings_deg=(0.0,), rho=1025.0,
     irr_removal : generate interior free-surface lids from the mesh's
         waterline loops and solve the extended system (irregular-frequency
         removal, on by default).
+
+    tracer : records the meshing and the lids as the span ``bem.mesh``
+        and passes on to :func:`solve_bem`; None records nothing.
 
     Frequencies above what the mesh resolves are clamped to the solve cap
     and de-duplicated (the interpolation onto the model grid clamps
@@ -1037,7 +1118,7 @@ def coeffs_from_members(members, omegas, headings_deg=(0.0,), rho=1025.0,
     )
 
     omegas = np.sort(np.asarray(omegas, float))
-    with timer("bem_mesh"):
+    with maybe_span(tracer, "bem.mesh"):
         if panels is None:
             panels = mesh_platform(members, dz_max=dz_max, da_max=da_max)
         if len(panels) == 0:
@@ -1049,7 +1130,8 @@ def coeffs_from_members(members, omegas, headings_deg=(0.0,), rho=1025.0,
     betas = np.deg2rad(np.asarray(headings_deg, float))
     out = solve_bem(panels, w_solve, betas=betas, rho=rho, g=g, quad=quad,
                     backend=backend, depth=depth, lid_panels=lids,
-                    n_devices=n_devices, device=device, devices=devices)
+                    n_devices=n_devices, device=device, devices=devices,
+                    tracer=tracer)
     return HydroCoeffs(
         w=out["w"], A=out["A"], B=out["B"],
         headings=np.asarray(headings_deg, float), X=out["X"],

@@ -78,11 +78,16 @@ from raft_tpu_torch.utils.placement import (
     resolve_device,
     resolve_dtype,
 )
+from raft_tpu_torch.trace import Tracer
 from raft_tpu_torch.utils.profiling import logger, timer
 from raft_tpu_torch.waterfall import check_mode, waterfall_case_dispatch
 from raft_tpu_torch.waves import wave_kinematics, wave_number
 
 _RAD2DEG = 57.29577951308232
+
+# a Model's own tracer holds the stage spans of its last ~250 BEM
+# frequencies (~32 spans each at 3072 panels); older spans roll off
+MODEL_MAX_SPANS = 8192
 
 _SPECTRUM_CODES = {"still": 0, "none": 0, "unit": 1, "JONSWAP": 2}
 
@@ -278,6 +283,9 @@ class Model:
         self.results = {}
         self._pipeline = None
         self.bem_coeffs = None
+        # the stage spans of run_bem (bem_solver.solve_bem's), bounded at
+        # MODEL_MAX_SPANS; None records nothing
+        self.tracer = Tracer("model", max_spans=MODEL_MAX_SPANS)
 
     # ------------------------------------------------------------------
     # statics / unloaded analysis
@@ -357,6 +365,10 @@ class Model:
         through the CUDA kernels), on ``cpu`` the CPU form (bilinear
         tables, complex LU).  ``n_devices`` / ``devices`` shard the
         frequencies over a device list (``bem_solver.solve_bem``).
+
+        The Model's ``tracer`` records the call's stages (``bem.mesh``,
+        then ``bem_solver.solve_bem``'s), each span carrying the call's
+        index in ``meta["call"]``.
         """
         from raft_tpu_torch.bem_solver import coeffs_from_members
 
@@ -378,6 +390,7 @@ class Model:
             backend="cuda" if self.device.type == "cuda" else "cpu",
             device=self.device, depth=self.depth,
             irr_removal=irr_removal, n_devices=n_devices, devices=devices,
+            tracer=None if self.tracer is None else self.tracer.call(),
         )
         return self.bem_coeffs
 

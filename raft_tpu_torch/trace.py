@@ -10,6 +10,20 @@ the moment their results are on the host, the critical path as the host
 sees it.  The span store is bounded (``max_spans``); past it the oldest
 spans roll off and :attr:`Tracer.dropped` counts them.
 
+A span given ``device=`` a card also records a CUDA event pair on that
+card's current stream; its ``meta["device_s"]`` (the seconds between the
+two events on the stream) is filled once both have completed, as read by
+``Event.query()`` when a later span ends, so a span adds no
+synchronisation.  While a ``torch.profiler`` records, every
+context-managed span (:meth:`Tracer.span`) also opens a
+``record_function`` range of its name, so the profiler's timeline shows
+the program's stages; ``t0_unix + t0`` of a span lies on the profiler's
+(unix) clock.  A :meth:`Tracer.begin` / :meth:`Tracer.end` pair opens no
+range: it may end on another thread or out of order, and the profiler's
+ranges are per thread and nested.  :meth:`Tracer.call` and
+:meth:`Tracer.bind` give views whose spans all carry fixed ``meta``
+(``call``, ``omega``).
+
 :func:`chrome_trace_from_spans` stitches the cross-process span
 documents of one trace id (obs/tracing.py's shape) into one timeline;
 ``Router.gather_trace`` emits it.  The sweeps take ``trace_path=`` where
@@ -21,9 +35,12 @@ import os
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
-__all__ = ["Tracer", "chrome_trace_from_spans", "DEFAULT_MAX_SPANS"]
+import torch
+
+__all__ = ["Tracer", "chrome_trace_from_spans", "maybe_span",
+           "DEFAULT_MAX_SPANS"]
 
 #: span-buffer bound; past it the oldest spans roll off
 DEFAULT_MAX_SPANS = 65536
@@ -53,6 +70,9 @@ class Tracer:
         self._lock = threading.Lock()
         self.t0_unix = time.time()
         self.t0 = time.perf_counter()
+        self.calls = 0
+        # (handle, start event, end event) of device spans not yet complete
+        self._pending = []
 
     @property
     def dropped(self):
@@ -61,10 +81,18 @@ class Tracer:
 
     # ------------------------------------------------------------ recording
 
-    def begin(self, name, backend="host", chunk=None, **meta):
-        """Open a span; returns the handle to pass to :meth:`end`."""
-        return {"name": name, "backend": backend, "chunk": chunk,
-                "t0": time.perf_counter() - self.t0, "meta": meta}
+    def begin(self, name, backend="host", chunk=None, device=None, **meta):
+        """Open a span; returns the handle to pass to :meth:`end`.  With
+        ``device`` a card, a CUDA event is recorded on its current
+        stream."""
+        h = {"name": name, "backend": backend, "chunk": chunk,
+             "t0": time.perf_counter() - self.t0, "meta": meta}
+        if device is not None and torch.device(device).type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(stream)
+            h["_event"] = (ev, stream)
+        return h
 
     def end(self, handle, **meta):
         """Close a span opened by :meth:`begin` and record it; returns
@@ -72,18 +100,56 @@ class Tracer:
         handle["t1"] = time.perf_counter() - self.t0
         if meta:
             handle["meta"].update(meta)
+        event = handle.pop("_event", None)
         with self._lock:
+            if event is not None:
+                start, stream = event
+                stop = torch.cuda.Event(enable_timing=True)
+                stop.record(stream)
+                self._pending.append((handle, start, stop))
             self.spans.append(handle)
+            self._settle()
         return handle["t1"] - handle["t0"]
 
+    def _settle(self):
+        """Fill ``device_s`` of the device spans whose events have
+        completed (under the lock)."""
+        if not self._pending:
+            return
+        left = []
+        for h, start, stop in self._pending:
+            if stop.query():
+                h["meta"]["device_s"] = start.elapsed_time(stop) * 1e-3
+            else:
+                left.append((h, start, stop))
+        self._pending = left
+
     @contextmanager
-    def span(self, name, backend="host", chunk=None, **meta):
-        """Context-managed synchronous span."""
-        h = self.begin(name, backend=backend, chunk=chunk, **meta)
+    def span(self, name, backend="host", chunk=None, device=None, **meta):
+        """Context-managed synchronous span; while a profiler records, also
+        a ``record_function`` range of its name."""
+        h = self.begin(name, backend=backend, chunk=chunk, device=device,
+                       **meta)
         try:
-            yield h
+            if torch.autograd._profiler_enabled():
+                with torch.profiler.record_function(name):
+                    yield h
+            else:
+                yield h
         finally:
             self.end(h)
+
+    def bind(self, **meta):
+        """A view of this tracer whose spans all carry ``meta``."""
+        return _Bound(self, meta)
+
+    def call(self):
+        """A view whose spans all carry ``meta["call"]``, the index of a
+        new call (0, 1, ... in the order the calls start)."""
+        with self._lock:
+            i = self.calls
+            self.calls += 1
+        return self.bind(call=i)
 
     def add(self, name, seconds, backend="host", chunk=None, **meta):
         """Record a duration measured elsewhere, ending now."""
@@ -213,6 +279,36 @@ class Tracer:
             json.dump(self.chrome_trace(), fh)
         os.replace(tmp, path)
         return path
+
+
+class _Bound:
+    """A :class:`Tracer` view that adds fixed ``meta`` to every span it
+    opens (a span's own keywords win)."""
+
+    def __init__(self, tracer, meta):
+        self.tracer = tracer
+        self.meta = meta
+
+    def bind(self, **meta):
+        return _Bound(self.tracer, {**self.meta, **meta})
+
+    def begin(self, name, **kw):
+        return self.tracer.begin(name, **{**self.meta, **kw})
+
+    def end(self, handle, **meta):
+        return self.tracer.end(handle, **meta)
+
+    def span(self, name, **kw):
+        return self.tracer.span(name, **{**self.meta, **kw})
+
+
+def maybe_span(tracer, name, **kw):
+    """``tracer.span(name, **kw)``, or where ``tracer`` is None a context
+    that records nothing and yields a throwaway handle (so callers may
+    still write ``handle["meta"]``)."""
+    if tracer is None:
+        return nullcontext({"meta": {}})
+    return tracer.span(name, **kw)
 
 
 def chrome_trace_from_spans(spans, label="raft_tpu_torch_trace"):
